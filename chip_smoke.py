@@ -8,27 +8,42 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
 1. build: print the card's name and power limit, turn TF32 off, build the
    CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a) and time it.
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   at yi-6b shapes, in f32 and bf16, and time kernel, plain version and a
-   PyTorch library call that computes the same function (a yardstick the
-   port never calls).
-3. serve: `DisaggCluster` at full yi-6b width (random f32 weights from a
-   seed, shared by both engines) serves a trace of 8 requests, some
+   at its main path's shapes (yi-6b for the attention kernels, mamba2-2.7b
+   for `ssd_scan`), in f32 and bf16, and time kernel, plain version and,
+   where one exists, a PyTorch library call that computes the same
+   function (a yardstick the port never calls).
+3. serve yi-6b: `DisaggCluster` at full yi-6b width (random f32 weights
+   from a seed, shared by both engines) serves a trace of 8 requests, some
    sharing a system prompt, with the prefix cache and 512-token chunked
-   prefill. Every kernel's launch count is read from this run.
-4. check: (a) on yi-6b-smoke, the disaggregated cluster on the card gives
-   the same greedy f32 tokens as the same cluster on the CPU, where every
-   kernel is its plain version; (b) a bf16 yi-6b model, teacher-forced over
-   one prompt (a flash_prefill chunk, a prefix_prefill chunk) and 8 decode
-   steps, gives the same logits through the kernels as through the plain
-   versions, within a stated bound (with the attention projections at
-   standard scales; see `standard_attention_scales`). The same comparison
-   in f32 at the serving weights is printed for information.
+   prefill. The four attention kernels' launch counts are read from this
+   run.
+4. check yi-6b: (a) on yi-6b-smoke, the disaggregated cluster on the card
+   gives the same greedy f32 tokens as the same cluster on the CPU, where
+   every kernel is its plain version; (b) a bf16 yi-6b model,
+   teacher-forced over one prompt (a flash_prefill chunk, a prefix_prefill
+   chunk) and 8 decode steps, gives the same logits through the kernels as
+   through the plain versions, within a stated bound (with the attention
+   projections at standard scales; see `standard_attention_scales`). The
+   same comparison in f32 at the serving weights is printed for
+   information. The yi-6b weights are then freed.
+5. serve mamba2-2.7b: the same trace through `DisaggCluster` at full
+   mamba2-2.7b width on the dense state slab (exact-length prefill, no
+   prefix cache, no chunking). Every prefill layer runs `ssd_scan`; its
+   launch count and the migrated state bytes are read from this run.
+6. check mamba2-2.7b: (a) as 4(a) on mamba2-2.7b-smoke; (b) at full
+   width, teacher-forced (a 512-token prefill, then 8 decode steps), the
+   logits and the prefill's SSM state through the kernel against the plain
+   versions, in f32 and bf16, each within a stated bound
+   (`MAMBA_BOUNDS`); (c) for information, a `torch.profiler` trace of one
+   1536-token prefill and one batch-8 decode step: the device's busy time,
+   its idle share and the kernels that take most time.
 
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -52,13 +67,36 @@ SOURCES = {
                        "src/repro/kernels/prefix_prefill/kernel.py:183"),
     "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill/kernel.py:78"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:85"),
 }
+# the main path each kernel serves (its launches are read from that run)
+PATH_OF = {"paged_decode": "yi-6b", "paged_insert": "yi-6b",
+           "prefix_prefill": "yi-6b", "flash_prefill": "yi-6b",
+           "ssd_scan": "mamba2-2.7b"}
 # whole-model bf16 check: kernel-path logits within this fraction of the
 # plain path's largest |logit|. Both paths run the same bf16 matmuls; they
 # differ only in where attention rounds to bf16 and in the f32 summation
 # order, which drifts through 32 layers. A wrong kernel gives O(1)
 # relative differences.
 LOGIT_BOUND = 0.1
+# ssd_scan against its plain version: f32 as the JAX sweep
+# (tests/test_kernels.py:237); in bf16 both read the same bf16 inputs and
+# compute in f32, so y differs by about one bf16 rounding
+SSD_TOL = {"float32": dict(atol=3e-4, rtol=3e-4),
+           "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+# whole-model mamba2-2.7b check, kernel path vs plain path, as a fraction
+# of the plain path's largest |value| (logits; prefill SSM state). A wrong
+# kernel gives O(1) differences. f32: the SSM has no softmax to amplify a
+# rounding, so the paths differ only by the scan's summation order (~5e-6
+# of |y| per layer) added up over 64 layers: ~2e-5 of scale on an H100.
+# bf16: where the two f32 scans round y to bf16 differently (one ulp,
+# 2^-8), every later bf16 op of that layer and the layers above rounds
+# differently too, so the paths drift apart at bf16's own noise level
+# (5.6% of the largest logit, 8.6% of the largest state entry on an H100);
+# the bf16 plain path's distance from the f32 plain path is printed beside
+# it as that noise level.
+MAMBA_BOUNDS = {"float32": 1e-4, "bfloat16": 0.25}
 
 
 def log(*a):
@@ -89,11 +127,11 @@ def bound(nbytes, flops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(out, ref, dtype_name):
+def max_err(out, ref, dtype_name, tols=TOL):
     import torch
     a, b = out.float(), ref.float()
     err = (a - b).abs()
-    tol = TOL[dtype_name]
+    tol = tols[dtype_name]
     ok = bool((err <= tol["atol"] + tol["rtol"] * b.abs()).all())
     return float(err.max()), ok
 
@@ -270,8 +308,85 @@ def kernel_phase(cfg, dtypes):
     return results
 
 
+def ssd_flops_bytes(b, S, nh, hd, G, N, Q, es):
+    """Useful operations and bytes of one SSD scan: C.B^T over the causal
+    pairs once per (chunk, group); per (chunk, head) the masked product
+    with x dt, the carried-in state's product and the chunk's state.
+    Bytes: x, B, C in and y out in the storage type, dt, A, D and h_final
+    in f32, each once."""
+    P = Q * (Q + 1) // 2
+    nc = S // Q
+    flops = b * nc * (G * 2 * P * N + nh * (2 * P * hd + 4 * Q * N * hd))
+    nbytes = (2 * b * S * nh * hd * es + 2 * b * S * G * N * es
+              + b * S * nh * 4 + 2 * nh * 4 + b * nh * hd * N * 4)
+    return flops, nbytes
+
+
+def ssd_kernel_phase(cfg, dtypes):
+    """`ssd_scan` at the mamba2-2.7b main path's shapes: a 2048-token
+    prefill (8 chunks of 256) and a 200-token prompt (one ragged chunk of
+    200). Inputs have the distributions of the JAX sweep
+    (tests/test_kernels.py::test_ssd_scan_sweep). No single PyTorch call
+    computes an SSD scan, so there is no library yardstick."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    s = cfg.ssm
+    nh, hd = s.expand * cfg.d_model // s.head_dim, s.head_dim
+    G, N = s.ngroups, s.state_dim
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    results = {}
+    for dtype in dtypes:
+        dn = str(dtype).split(".")[-1]
+        es = torch.empty((), dtype=dtype).element_size()
+        rows = {}
+        for key, S, Q in (("ssd_scan", 2048, 256),
+                          ("ssd_scan_ragged", 200, 200)):
+            x = randn(1, S, nh, hd).to(dtype)
+            dt = torch.nn.functional.softplus(randn(1, S, nh)) * 0.1
+            A = -torch.exp(randn(nh))
+            B = randn(1, S, G, N).to(dtype)
+            C = randn(1, S, G, N).to(dtype)
+            D = randn(nh)
+            y, h = ssd_scan(x, dt, A, B, C, D, chunk=Q)
+            ry, rh = ssd_scan_ref(x, dt, A, B, C, D, chunk=Q)
+            torch.cuda.synchronize()
+            err_y, ok_y = max_err(y, ry, dn, SSD_TOL)
+            err_h, ok_h = max_err(h, rh, "float32", SSD_TOL)
+            flops, nbytes = ssd_flops_bytes(1, S, nh, hd, G, N, Q, es)
+            rows[key] = dict(
+                shape=f"b=1 S={S} chunk={Q} nh={nh} hd={hd} G={G} N={N}",
+                max_abs_err=max(err_y, err_h), max_abs_err_y=err_y,
+                max_abs_err_h=err_h, ok=ok_y and ok_h,
+                ms=time_ms(lambda: ssd_scan(x, dt, A, B, C, D, chunk=Q)),
+                plain_ms=time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, D,
+                                                      chunk=Q), iters=5),
+                library_ms=None, library="none", bytes=nbytes, flops=flops)
+        for name, r in rows.items():
+            r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], dn)
+            log(f"kernel {name:15s} {dn:8s} {r['shape']}: "
+                f"max_abs_err y={r['max_abs_err_y']:.3e} "
+                f"h={r['max_abs_err_h']:.3e} "
+                f"{'ok' if r['ok'] else 'MISMATCH'} "
+                f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"library_ms=none bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']})")
+        results[dn] = rows
+        bad = [n for n, r in rows.items() if not r["ok"]]
+        if bad:
+            raise SystemExit(f"kernel phase: {bad} disagree with their plain "
+                             f"versions in {dn}")
+    return results
+
+
 # ---------------------------------------------------------------------------
-# phase 3: disaggregated serving at full yi-6b width
+# phases 3 and 5: disaggregated serving at full width
 # ---------------------------------------------------------------------------
 
 def serve_trace(vocab, seed=0, n=8):
@@ -291,13 +406,18 @@ def serve_trace(vocab, seed=0, n=8):
     return reqs
 
 
-def serve_phase(cfg, params):
+def serve_phase(cfg, params, **cluster_kw):
+    """Serve `serve_trace` through `DisaggCluster` (1 prefill + 1 decode
+    engine, 8 slots, max_len 2048, plus `cluster_kw`); the launch counts
+    are set to 0 just before and read just after. Fails unless every
+    request finishes well formed and every kernel of this model's path
+    (`PATH_OF`) launched."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.cluster import DisaggCluster
 
     dc = DisaggCluster(cfg, params, n_prefill=1, n_decode=1, max_batch=8,
-                       max_len=2048, prefix_cache=True, chunk_tokens=512)
+                       max_len=2048, **cluster_kw)
     reqs = serve_trace(cfg.vocab_size)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -318,7 +438,7 @@ def serve_phase(cfg, params):
                prompt_tokens=sum(r.in_len for r in reqs),
                generated_tokens=sum(r.n_generated for r in res.values()),
                wall_s=wall, launches=counts)
-    log(f"serve yi-6b f32: served={len(res)}/{len(reqs)} "
+    log(f"serve {cfg.name} f32: served={len(res)}/{len(reqs)} "
         f"finished={len(finished)} ttft_median={ttft:.4f}s "
         f"tpot_median={tpot:.4f}s (virtual clock) "
         f"kv_bytes_migrated={dc.tx.total_bytes} "
@@ -331,7 +451,8 @@ def serve_phase(cfg, params):
             raise SystemExit(f"serve: request {rid} came back malformed")
     if len(finished) != len(reqs):
         raise SystemExit("serve: not every request finished")
-    zero = [k for k, v in counts.items() if v <= 0]
+    zero = [k for k, v in counts.items()
+            if PATH_OF[k] == cfg.name and v <= 0]
     if zero:
         raise SystemExit(f"serve: kernels never launched on the main path: "
                          f"{zero}")
@@ -343,16 +464,17 @@ def serve_phase(cfg, params):
 # phase 4: checks against the plain versions
 # ---------------------------------------------------------------------------
 
-def smoke_tokens_check():
-    """yi-6b-smoke: the disaggregated cluster on the card (kernels) and on
-    the CPU (plain versions) give the same greedy f32 tokens."""
+def smoke_tokens_check(name, **cluster_kw):
+    """`name` (a smoke config): the disaggregated cluster on the card
+    (kernels) and on the CPU (plain versions) give the same greedy f32
+    tokens."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.workload import Request
     from repro_torch.models.api import build_model
     from repro_torch.serving.cluster import DisaggCluster
 
-    cfg = get_config("yi-6b-smoke")
+    cfg = get_config(name)
     gen = torch.Generator(device="cpu").manual_seed(0)
     params = build_model(cfg).init(gen, "cpu")
     toks = {}
@@ -360,11 +482,10 @@ def smoke_tokens_check():
         # fresh requests per run: a run fills in their lifecycle fields
         reqs = [Request(i, i * 0.01, 10 + (i % 4) * 7, 6) for i in range(6)]
         dc = DisaggCluster(cfg, params, n_prefill=1, n_decode=1,
-                           max_batch=4, max_len=64, prefix_cache=True,
-                           chunk_tokens=16, device=dev)
+                           max_batch=4, max_len=64, device=dev, **cluster_kw)
         toks[dev] = {rid: r.tokens for rid, r in dc.run(reqs).items()}
     same = toks["cuda"] == toks["cpu"]
-    log(f"check yi-6b-smoke f32 tokens, card vs CPU plain versions: "
+    log(f"check {name} f32 tokens, card vs CPU plain versions: "
         f"{'identical' if same else 'DIFFER'} over {len(reqs)} requests")
     if not same:
         raise SystemExit("check: card tokens differ from the CPU reference")
@@ -470,6 +591,135 @@ def logits_check(cfg, params):
     return out
 
 
+def mamba_teacher_force(model, params, tokens, n_prompt, plain):
+    """Prefill `tokens[:n_prompt]` (every layer's scan through `ssd_scan`,
+    or its plain version with `plain`), then one decode step per
+    remaining token. Returns (every stage's logits in f32, the prefill's
+    SSM state)."""
+    import torch
+    toks = torch.as_tensor(tokens, device=params["embed"].device)[None]
+    lg, cache, _ = model.forward(params, toks[:, :n_prompt],
+                                 return_cache=True, plain=plain)
+    state = cache["ssm"].clone()
+    out = [lg[:, 0].float()]
+    for t in range(n_prompt, len(tokens)):
+        lg, cache = model.decode_step(params, cache, toks[:, t])
+        out.append(lg.float())
+    return torch.cat(out), state
+
+
+def mamba_check(cfg, params):
+    """Full-width mamba2-2.7b, teacher-forced over 512 prompt tokens and 8
+    decode steps: logits and prefill SSM state through the kernel against
+    the plain versions, in f32 (the serving weights) and bf16 (a cast of
+    them), each held to `MAMBA_BOUNDS`."""
+    import numpy as np
+    import torch
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg)
+    tokens = np.random.default_rng(11).integers(1, cfg.vocab_size,
+                                                512 + 8).tolist()
+    out, plain_f32 = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        # f32: the same tensors
+        p = model.cast(params, dtype, params["embed"].device)
+        got, got_h = mamba_teacher_force(model, p, tokens, 512, plain=False)
+        want, want_h = mamba_teacher_force(model, p, tokens, 512, plain=True)
+        torch.cuda.synchronize()
+        del p
+        if plain_f32 is None:
+            plain_f32 = (want, want_h)
+        r = dict(max_abs_diff=float((got - want).abs().max()),
+                 max_abs_logit=float(want.abs().max()),
+                 state_max_abs_diff=float((got_h - want_h).abs().max()),
+                 state_max_abs=float(want_h.abs().max()),
+                 argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                    .float().mean()),
+                 bound_fraction=MAMBA_BOUNDS[dn],
+                 plain_vs_f32_plain=float((want - plain_f32[0]).abs().max()),
+                 state_plain_vs_f32_plain=float(
+                     (want_h - plain_f32[1]).abs().max()))
+        r["bound"] = MAMBA_BOUNDS[dn] * r["max_abs_logit"]
+        r["state_bound"] = MAMBA_BOUNDS[dn] * r["state_max_abs"]
+        log(f"check {cfg.name} {dn}: teacher-forced (prefill 512 + 8 decode "
+            f"steps), kernel vs plain versions: logits max_abs_diff="
+            f"{r['max_abs_diff']:.4e} of max_abs_logit="
+            f"{r['max_abs_logit']:.4e} (bound {r['bound']:.4e}); prefill "
+            f"ssm state max_abs_diff={r['state_max_abs_diff']:.4e} of "
+            f"{r['state_max_abs']:.4e} (bound {r['state_bound']:.4e}); "
+            f"argmax_agree={r['argmax_agree']:.3f}; plain {dn} vs plain f32: "
+            f"logits {r['plain_vs_f32_plain']:.4e}, state "
+            f"{r['state_plain_vs_f32_plain']:.4e}")
+        out[dn] = r
+        if not (math.isfinite(r["max_abs_diff"])
+                and math.isfinite(r["state_max_abs_diff"])
+                and r["max_abs_diff"] <= r["bound"]
+                and r["state_max_abs_diff"] <= r["state_bound"]):
+            raise SystemExit(f"check: {cfg.name} {dn} kernel path beyond "
+                             f"the bound")
+    return out
+
+
+def device_profile(fn, label):
+    """Run `fn` once under `torch.profiler` (after one untimed run) and
+    print its host wall time, the device's busy time (the sum of its
+    kernels' durations) and idle share, and the kernels that took most
+    time. For information; nothing is held to it."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = collections.Counter()
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            n += 1
+    busy = sum(by_name.values())
+    top = [(k[:60], round(v, 3)) for k, v in by_name.most_common(5)]
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy, kernels=n,
+               idle_share=1 - busy / wall_ms if wall_ms else None, top=top)
+    log(f"profile {label}: wall={wall_ms:.3f}ms device_busy={busy:.3f}ms "
+        f"idle_share={out['idle_share']:.3f} kernels={n} top={top}")
+    return out
+
+
+def mamba_profile(cfg, params):
+    """Where a mamba2-2.7b step's time goes: one 1536-token prefill (6
+    chunks of 256) and one decode step at batch 8, f32."""
+    import torch
+    from repro_torch.models.api import build_model
+    model = build_model(cfg)
+    dev = params["embed"].device
+    toks = torch.randint(1, cfg.vocab_size, (1, 1536), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    specs = model.cache_specs(8, 2048, torch.float32)
+    cache = {k: (torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                 if not isinstance(v, dict) else
+                 {c: torch.zeros(w.shape, dtype=w.dtype, device=dev)
+                  for c, w in v.items()})
+             for k, v in specs.items()}
+    step_toks = toks[0, :8].contiguous()
+    return {
+        "prefill_1536": device_profile(
+            lambda: model.forward(params, toks, return_cache=True),
+            f"{cfg.name} prefill 1536 tokens"),
+        "decode_b8": device_profile(
+            lambda: model.decode_step(params, cache, step_toks),
+            f"{cfg.name} decode step, batch 8"),
+    }
+
+
 # ---------------------------------------------------------------------------
 
 def ptxas_summary(build_log: Path) -> str:
@@ -490,6 +740,20 @@ def ptxas_summary(build_log: Path) -> str:
     return (f"ptxas: {len(regs)} kernel instances, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, "
             f"{len(spills)} spilling" + "".join(f"\n  {s}" for s in spills))
+
+
+def init_params(cfg):
+    """Random f32 weights of `cfg` on the card, from seed 0."""
+    import torch
+    from repro_torch.models.api import build_model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"init {cfg.name} f32 params on the card: "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    return params
 
 
 def main() -> int:
@@ -513,6 +777,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from repro_torch.configs import get_config
+    from repro_torch.core.kv_transfer import kv_bytes
     from repro_torch.kernels.build import BUILD_DIR, build_seconds, library
     library()
     log(f"build: {build_seconds():.1f}s ({BUILD_DIR})")
@@ -523,23 +788,45 @@ def main() -> int:
                          "count": torch.cuda.device_count()},
               "nvidia_smi": smi, "build_s": build_seconds()}
     cfg = get_config("yi-6b")
-    record["kernels"] = kernel_phase(cfg, (torch.float32, torch.bfloat16))
-    from repro_torch.models.api import build_model
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    params = build_model(cfg).init(gen, "cuda")
-    torch.cuda.synchronize()
-    log(f"init yi-6b f32 params on the card: "
-        f"{time.perf_counter() - t0:.1f}s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    record["serve"] = serve_phase(cfg, params)
-    record["check_tokens"] = smoke_tokens_check()
-    record["check_logits"] = logits_check(cfg, params)
+    mcfg = get_config("mamba2-2.7b")
+    dtypes = (torch.float32, torch.bfloat16)
+    record["kernels"] = kernel_phase(cfg, dtypes)
+    for dn, rows in ssd_kernel_phase(mcfg, dtypes).items():
+        record["kernels"][dn].update(rows)
 
-    launches = record["serve"]["launches"]
+    # -- yi-6b: the paged path ---------------------------------------------
+    params = init_params(cfg)
+    record["serve"] = serve_phase(cfg, params, prefix_cache=True,
+                                  chunk_tokens=512)
+    record["check_tokens"] = smoke_tokens_check("yi-6b-smoke",
+                                                prefix_cache=True,
+                                                chunk_tokens=16)
+    record["check_logits"] = logits_check(cfg, params)
+    del params                  # one model's weights on the card at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- mamba2-2.7b: the dense state slab ---------------------------------
+    params = init_params(mcfg)
+    record["serve_mamba"] = serve = serve_phase(mcfg, params)
+    want_launches = serve["submitted"] * mcfg.num_layers
+    want_bytes = serve["submitted"] * kv_bytes(mcfg, 0)
+    log(f"serve {mcfg.name}: ssd_scan launches {serve['launches']['ssd_scan']}"
+        f" (expected {want_launches}: one per prefill layer), state bytes "
+        f"migrated {serve['kv_bytes_migrated']} (expected {want_bytes})")
+    if serve["launches"]["ssd_scan"] != want_launches or \
+            serve["kv_bytes_migrated"] != want_bytes:
+        raise SystemExit("serve: mamba2-2.7b launches or bytes are off")
+    record["check_tokens_mamba"] = smoke_tokens_check("mamba2-2.7b-smoke")
+    record["check_mamba"] = mamba_check(mcfg, params)
+    record["profile_mamba"] = mamba_profile(mcfg, params)
+    del params
+
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = record["kernels"]["float32"][name]
+        launches = (record["serve"] if PATH_OF[name] == cfg.name
+                    else record["serve_mamba"])["launches"]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches.get(name, 0),

@@ -14,8 +14,10 @@ def _launchers():
     from .flash_prefill.kernel import flash_prefill
     from .paged_decode.kernel import paged_decode, paged_insert
     from .prefix_prefill.kernel import prefix_prefill
+    from .ssd_scan.kernel import ssd_scan
     return {"paged_decode": paged_decode, "paged_insert": paged_insert,
-            "prefix_prefill": prefix_prefill, "flash_prefill": flash_prefill}
+            "prefix_prefill": prefix_prefill, "flash_prefill": flash_prefill,
+            "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:

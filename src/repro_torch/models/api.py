@@ -1,7 +1,8 @@
 """Model facade (port of `repro/models/api.py`).
 
-The port covers the dense decoder on the paged KV path. Other families
-raise `NotImplementedError` naming the ROADMAP item that ports them.
+The port covers the dense decoder on the paged KV path and the SSM family
+(`mamba_lm`) on the dense slab. Other families raise
+`NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -10,24 +11,24 @@ from typing import Any
 
 import torch
 
-from . import transformer
+from . import mamba_lm, transformer
 
+_PORTED = {"dense": transformer, "ssm": mamba_lm}
 # family -> the ROADMAP item that ports it
 _LATER = {
     "moe": "A9 (MoE routed experts)",
     "vlm": "A9 (VLM frontends)",
-    "ssm": "A10 (models/ssd.py, models/mamba_lm.py, kernel B5)",
     "hybrid": "A11 (models/hybrid.py)",
     "encdec": "A11 (models/encdec.py)",
 }
 
 
 def _mod(cfg):
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"(ROADMAP {_LATER.get(cfg.family, 'A')})")
-    return transformer
+    return _PORTED[cfg.family]
 
 
 @dataclasses.dataclass
@@ -56,6 +57,15 @@ class Model:
     def forward(self, params, tokens, **kw):
         return _mod(self.cfg).forward(params, tokens, self.cfg, **kw)
 
+    def decode_step(self, params, cache, tokens, *, plain=False):
+        """Dense-slab decode step (the SSM family's state, in place)."""
+        if not supports_slab(self.cfg):
+            raise NotImplementedError(
+                f"{self.cfg.name}: the dense-slab decode_step is not ported "
+                f"yet (ROADMAP A7)")
+        return _mod(self.cfg).decode_step(params, cache, tokens, self.cfg,
+                                          plain=plain)
+
     def decode_step_paged(self, params, cache, tokens, *, plain=False):
         if not supports_paged(self.cfg):
             raise NotImplementedError(
@@ -65,6 +75,13 @@ class Model:
                                                 self.cfg, plain=plain)
 
     # ---- specs -------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        if not supports_slab(self.cfg):
+            raise NotImplementedError(
+                f"{self.cfg.name}: the dense-slab cache is not ported yet "
+                f"(ROADMAP A7)")
+        return _mod(self.cfg).cache_specs(self.cfg, batch, max_len, dtype)
+
     def paged_cache_specs(self, batch: int, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, max_len=None):
         if not supports_paged(self.cfg):
@@ -81,6 +98,13 @@ def supports_paged(cfg) -> bool:
     return (cfg.family in ("dense", "moe", "vlm")
             and cfg.sliding_window == 0
             and not cfg.local_global_ratio)
+
+
+def supports_slab(cfg) -> bool:
+    """Whether the family's dense-slab decode (`decode_step` over
+    `cache_specs`) is ported: the SSM family so far; the transformer's is
+    ROADMAP A7."""
+    return hasattr(_mod(cfg), "decode_step")
 
 
 def build_model(cfg) -> Model:

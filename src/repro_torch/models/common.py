@@ -9,10 +9,16 @@ runs on one card.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one cache leaf (JAX's ShapeDtypeStruct)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def shard(x: torch.Tensor, *logical) -> torch.Tensor:
@@ -37,6 +43,12 @@ def param(gen: torch.Generator, shape, *, device, dtype=torch.float32,
     v = torch.randn(full, generator=gen, device=device, dtype=torch.float32)
     v.mul_(scale)       # in place: no second full-size temporary
     return v if dtype == torch.float32 else v.to(dtype)
+
+
+def layer_of(tree, l: int):
+    """Layer `l` of stacked params (leading layer axis; views, no copy)."""
+    return {k: layer_of(v, l) if isinstance(v, dict) else v[l]
+            for k, v in tree.items()}
 
 
 def rmsnorm(x, w, eps):

@@ -18,15 +18,15 @@ packing of windowed caches (ROADMAP A7), the dense `prefix_kv` branch
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from ..kernels.flash_prefill.ops import flash_prefill_op
 from ..kernels.paged_decode.ops import paged_decode_op, paged_insert_op
 from ..kernels.prefix_prefill.ops import prefix_prefill_op
-from .common import (apply_norm, apply_rope, embed_lookup, norm_params, param,
-                     rmsnorm)
+from .common import (TensorSpec, apply_norm, apply_rope, embed_lookup,
+                     layer_of, norm_params, param, rmsnorm)
 from .moe import dense_ffn_apply, dense_ffn_params
 
 LOCAL_ROPE_THETA = 10000.0  # gemma3 local layers
@@ -122,12 +122,6 @@ def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
         p[f"seg{i}"] = layer_params(gen, cfg, seg.kind, device=device,
                                     stack=seg.n)
     return p
-
-
-def _layer(tree, l: int):
-    """Layer `l` of a segment's stacked params (views, no copy)."""
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
-            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +233,7 @@ def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
             paged = None
             if ppg is not None:
                 paged = (ppg["k"][l], ppg["v"][l], prefix_table, plens)
-            x, (k, v) = _layer_body(x, _layer(sp, l), cfg, seg.kind,
+            x, (k, v) = _layer_body(x, layer_of(sp, l), cfg, seg.kind,
                                     positions, attn_blocks,
                                     paged_prefix=paged, plain=plain)
             if return_cache:
@@ -311,7 +305,7 @@ def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
         lens = torch.clamp(pos + 1, max=max_pps * page_size)
         theta = _rope_theta(seg.kind, cfg)
         for l in range(seg.n):
-            pl = _layer(params[f"seg{i}"], l)
+            pl = layer_of(params[f"seg{i}"], l)
             h = apply_norm(x, pl["ln1"], cfg)
             q, k, v = _qkv(pl["attn"], h[:, None], cfg, pos[:, None], theta)
             q, k, v = q[:, 0], k[:, 0], v[:, 0]
@@ -325,11 +319,6 @@ def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
     logits = unembed(params, x, cfg)
     pos.add_(1)
     return logits, cache
-
-
-class TensorSpec(NamedTuple):
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 def paged_cache_specs(cfg, batch: int, num_pages: int, page_size: int,

@@ -1,13 +1,19 @@
-"""Live single-instance inference engine on the paged KV runtime (port of
+"""Live single-instance inference engine (port of
 `repro/serving/engine.py`).
 
-KV storage is a pool of fixed-size pages plus per-sequence block tables,
-managed by `KVCacheManager`. Prefill caches are spliced in at page
-granularity (a block-table update plus an O(pages) in-place write into
-the pools) and decode runs through the `paged_insert` and `paged_decode`
-kernels. Prefill runs per request, right-padded to the JAX engine's length
-buckets and page buckets, so blob shapes and trash-padded tables match
-the JAX engine's.
+On the paged KV runtime (the dense decoder), KV storage is a pool of
+fixed-size pages plus per-sequence block tables, managed by
+`KVCacheManager`. Prefill caches are spliced in at page granularity (a
+block-table update plus an O(pages) in-place write into the pools) and
+decode runs through the `paged_insert` and `paged_decode` kernels.
+Prefill runs per request, right-padded to the JAX engine's length buckets
+and page buckets, so blob shapes and trash-padded tables match the JAX
+engine's.
+
+The SSM family runs on the dense slab: a `max_batch` cache of
+`Model.cache_specs`, one slot per resident sequence, exact-length prefill
+(its scan through the `ssd_scan` kernel) and `Model.decode_step`. Its
+migrated "KV" is the constant-size state.
 
 Step times are measured on the host clock after a device synchronise and
 accumulated on a virtual clock, so one host can emulate N concurrent
@@ -15,9 +21,9 @@ instances.
 
 The engine runs on the card (`device=None` means "cuda"; with no CUDA
 device it raises). `device="cpu"` runs every kernel's plain version, as
-the tests do. The dense-slab engine (`paged=False`, and the archs that
-need it) is ROADMAP A7; the dense-gather `fused_prefix=False` fallback is
-ROADMAP A8.
+the tests do. The transformer's dense slab (`paged=False`, and the
+windowed archs that need it) is ROADMAP A7; the dense-gather
+`fused_prefix=False` fallback is ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.api import build_model, supports_paged
+from ..models.api import build_model, supports_paged, supports_slab
 from .api import FINISH_LENGTH, FINISH_STOP, SamplingParams
 from .kv_cache import KVCacheManager, TRASH_PAGE
 from .prefix_cache import RadixPrefixCache
@@ -150,13 +156,17 @@ class Engine:
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         self.dtype = dtype
+        # exact-length prefill for state-carrying families
+        self.exact_len = (cfg.family in ("ssm", "hybrid", "encdec")
+                          or cfg.sliding_window > 0)
         self.paged = supports_paged(cfg) if paged is None \
             else (paged and supports_paged(cfg))
-        if not self.paged:
+        if not self.paged and not supports_slab(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the dense-slab engine (paged=False, sliding "
-                f"windows) is not ported yet (ROADMAP A7)")
-        self.prefix_caching = bool(prefix_cache)
+                f"{cfg.name}: the transformer's dense-slab engine "
+                f"(paged=False, sliding windows) is not ported yet "
+                f"(ROADMAP A7)")
+        self.prefix_caching = bool(prefix_cache and self.paged)
         if self.prefix_caching and fused_prefix is not None \
                 and not fused_prefix:
             raise NotImplementedError(
@@ -177,12 +187,14 @@ class Engine:
         self.decode_tokens = 0
         self.fused_dispatches = 0             # prefix_prefill kernel calls
         self.chunk_dispatches = 0             # chunked-prefill kernel calls
-        pps = -(-max_len // page_size)
-        # default pool: dense-slab-equivalent capacity + trash page 0
-        num_pages = num_pages or (max_batch * pps + 1)
-        assert num_pages >= pps + 1, \
-            "page pool must fit at least one max_len sequence"
-        self._kv = KVCacheManager(num_pages, page_size, max_len)
+        self._kv = None
+        if self.paged:
+            pps = -(-max_len // page_size)
+            # default pool: dense-slab-equivalent capacity + trash page 0
+            num_pages = num_pages or (max_batch * pps + 1)
+            assert num_pages >= pps + 1, \
+                "page pool must fit at least one max_len sequence"
+            self._kv = KVCacheManager(num_pages, page_size, max_len)
         self.prefix_cache = (RadixPrefixCache(page_size, allocator=self._kv)
                              if self.prefix_caching else None)
         # the fused paged-prefix prefill (prefix_prefill kernel) is the
@@ -205,7 +217,8 @@ class Engine:
             "slots_free": len(self._slot_free),
             "partial_prefills": len(self._partial),
         }
-        out.update(self._kv.stats())
+        if self._kv is not None:
+            out.update(self._kv.stats())
         if self.prefix_caching:
             for k, v in self.prefix_cache.metrics().items():
                 out[f"prefix.{k}"] = v
@@ -213,9 +226,13 @@ class Engine:
 
     # ---- cache plumbing ------------------------------------------------
     def _empty_cache(self):
-        specs = self.model.paged_cache_specs(
-            self.max_batch, self._kv.num_pages, self._kv.page_size,
-            self.dtype, max_len=self.max_len)
+        if self.paged:
+            specs = self.model.paged_cache_specs(
+                self.max_batch, self._kv.num_pages, self._kv.page_size,
+                self.dtype, max_len=self.max_len)
+        else:
+            specs = self.model.cache_specs(self.max_batch, self.max_len,
+                                           self.dtype)
 
         def alloc(s):
             if isinstance(s, dict):
@@ -289,7 +306,7 @@ class Engine:
 
     @property
     def free_pages(self) -> int:
-        return self._kv.free_pages
+        return self._kv.free_pages if self.paged else self.free_slots
 
     @staticmethod
     def tokens_needed(seq: Sequence) -> int:
@@ -304,6 +321,8 @@ class Engine:
         before rejecting."""
         if not self._slot_free:
             return False
+        if not self.paged:
+            return True
         need = self._kv.pages_for(self.tokens_needed(seq)) - n_shared_pages
         if need > self._kv.free_pages and self.prefix_caching:
             self.prefix_cache.evict(need - self._kv.free_pages)
@@ -379,11 +398,18 @@ class Engine:
         assert S < self.max_len, (S, self.max_len)
         if self.prefix_caching:
             return self._prefill_with_prefix(seq, toks)
-        bucket = self._bucket(S)
+        bucket = S if self.exact_len else self._bucket(S)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :S] = toks                                  # right-pad
         t0 = time.perf_counter()
-        logits, cache = self._forward_chunk(padded, [], 0, S - 1)
+        if self.paged:
+            logits, cache = self._forward_chunk(padded, [], 0, S - 1)
+        else:
+            # the slab families are exact-length: the last position's
+            # logits are the first token's
+            logits, cache, _ = self.model.forward(
+                self.params, torch.as_tensor(padded, device=self.device),
+                return_cache=True)
         self._sync()
         dt = time.perf_counter() - t0
         self.clock += dt
@@ -476,6 +502,7 @@ class Engine:
         tail. Returns ``(done, first_token, blob, dt, new_tokens)``;
         `first_token`/`blob` are None until the final chunk, whose blob is
         fully page-backed."""
+        assert self.paged, "chunked prefill needs the paged runtime"
         toks = np.asarray(seq.tokens, np.int32)
         S = len(toks)
         assert S < self.max_len, (S, self.max_len)
@@ -594,15 +621,20 @@ class Engine:
         cache, _ = kv_blob
         return _tree_bytes(cache)
 
-    # ---- paged insert (block-table splice) ------------------------------
+    # ---- insert: block-table splice (paged) or slot write (slab) --------
     def insert_kv(self, seq: Sequence, kv_blob, shared: List[int] = (),
                   skip_tokens: int = 0) -> int:
-        """Install a transferred prefill cache: allocate the block table
-        for the sequence's residency -- `shared` pages (pinned via
-        `pin_prefix`) head the table, covering the first `skip_tokens`
-        positions -- and write the blob (the KV beyond `skip_tokens`) into
-        the fresh pages, touching O(suffix pages) of device memory."""
+        """Install a transferred prefill cache.
+
+        Paged: allocate the block table for the sequence's residency --
+        `shared` pages (pinned via `pin_prefix`) head the table, covering
+        the first `skip_tokens` positions -- and write the blob (the KV
+        beyond `skip_tokens`) into the fresh pages, touching O(suffix
+        pages) of device memory. Slab: write the blob into a free slot."""
         cache, n_tok = kv_blob
+        if not self.paged:
+            assert not shared and not skip_tokens
+            return self._insert_kv_slab(seq, cache, n_tok)
         ps = self._kv.page_size
         assert skip_tokens % ps == 0 and skip_tokens // ps == len(shared)
         need = self._kv.pages_for(max(self.tokens_needed(seq), n_tok))
@@ -629,12 +661,30 @@ class Engine:
             seq.decode_hit = skip_tokens
         return slot
 
+    def _insert_kv_slab(self, seq: Sequence, cache, n_tok: int) -> int:
+        """Write a batch-1 prefill cache into a free slot, in place: every
+        leaf but `pos` has its batch on axis 1, after the layer axis (the
+        JAX engine finds the same axis from the shapes)."""
+        slot = self._slot_free.pop(0)
+        seq.slot = slot
+
+        def write(dst, src):
+            for k, d in dst.items():
+                if isinstance(d, dict):
+                    write(d, src[k])
+                elif k != "pos":
+                    d[:, slot] = src[k][:, 0].to(d.dtype)
+        write(self._cache, cache)
+        self._cache["pos"][slot] = n_tok
+        return slot
+
     def release(self, seq: Sequence):
         if seq.slot >= 0:
-            self._kv.free(seq.rid)
-            # repoint the slot at the trash page; later writes are inert
-            self._cache["block_tables"][seq.slot] = TRASH_PAGE
-            self._cache["pos"][seq.slot] = 0
+            if self.paged:
+                self._kv.free(seq.rid)
+                # repoint the slot at the trash page; later writes are inert
+                self._cache["block_tables"][seq.slot] = TRASH_PAGE
+                self._cache["pos"][seq.slot] = 0
             self._slot_free.append(seq.slot)
             seq.slot = -1
 
@@ -667,9 +717,10 @@ class Engine:
         for s in seqs:
             tokens[s.slot] = s.tokens[-1]
         t0 = time.perf_counter()
-        logits, self._cache = self.model.decode_step_paged(
-            self.params, self._cache,
-            torch.as_tensor(tokens, device=self.device))
+        step = self.model.decode_step_paged if self.paged \
+            else self.model.decode_step
+        logits, self._cache = step(self.params, self._cache,
+                                   torch.as_tensor(tokens, device=self.device))
         self._sync()
         dt = time.perf_counter() - t0
         self.clock += dt

@@ -8,7 +8,8 @@ that has only PyTorch; `tests/conftest.py` imports JAX, so run it as
 
 The shapes are those of the JAX package's kernel sweeps
 (`tests/test_kernels.py`), plus the model's (B, S, H, hd) views. Tolerances
-are those of `tests/test_kernels.py:16-17`.
+are those of `tests/test_kernels.py:16-17`; the SSD scan's f32 tolerance is
+that of its JAX sweep (`tests/test_kernels.py:237`, 3e-4).
 """
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.kernels.paged_decode.ref import (paged_decode_ref,
                                                   paged_insert_ref)
 from repro_torch.kernels.prefix_prefill.ops import prefix_prefill_op
 from repro_torch.kernels.prefix_prefill.ref import prefix_prefill_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 
 TOLS = {torch.float32: dict(atol=5e-5, rtol=5e-5),
         torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
@@ -155,3 +157,71 @@ def test_paged_insert_kernel_is_byte_exact(cuda, dtype):
     paged_insert_ref(k2, v2, kn, vn, pidx, off)
     torch.cuda.synchronize()
     assert torch.equal(kp, k2) and torch.equal(v2, vp)
+
+
+# ssd_scan: f32 as the JAX sweep (tests/test_kernels.py:237); in bf16 both
+# sides read the same bf16 inputs and compute in f32, so y differs by about
+# one bf16 rounding and h_final (f32) stays at the f32 tolerance
+SSD_TOLS = {torch.float32: dict(atol=3e-4, rtol=3e-4),
+            torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+def _ssd_inputs(rng, dev, dtype, b, S, nh, hd, G, N):
+    """(x, dt, A, B, C, D) with the distributions of the JAX sweep; dt in
+    f32, the rest in `dtype` (a bf16 model keeps A and D in bf16)."""
+    def n(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x, B, C = n(b, S, nh, hd), n(b, S, G, N), n(b, S, G, N)
+    dt = np.log1p(np.exp(n(b, S, nh))) * 0.1
+    A, D = -np.exp(n(nh)), n(nh)
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(t)
+                 for a, t in ((x, dtype), (dt, torch.float32), (A, dtype),
+                              (B, dtype), (C, dtype), (D, dtype)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (b, S, nh, hd, G, N, chunk): tests/test_kernels.py:220-225
+    (2, 64, 4, 8, 2, 16, 16),
+    (1, 128, 2, 64, 1, 128, 32),
+    (2, 96, 4, 16, 4, 32, 32),
+    (1, 200, 2, 16, 1, 16, 200),             # one ragged chunk
+    (2, 1, 4, 16, 2, 16, 1),                 # a 1-token prompt
+    (1, 2048, 80, 64, 1, 128, 256),          # mamba2-2.7b, 8 chunks
+])
+def test_ssd_scan_kernel(cuda, shape, dtype):
+    b, S, nh, hd, G, N, chunk = shape
+    args = _ssd_inputs(np.random.default_rng(5), cuda, dtype, b, S, nh, hd,
+                       G, N)
+    before = tk.launch_counts()["ssd_scan"]
+    y, h = ssd_scan_op(*args, chunk=chunk)
+    assert tk.launch_counts()["ssd_scan"] == before + 1
+    ry, rh = ssd_scan_op(*args, chunk=chunk, plain=True)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.float().cpu().numpy(), **SSD_TOLS[dtype])
+    np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(),
+                               **SSD_TOLS[torch.float32])
+
+
+def test_ssd_scan_kernel_initial_state_and_padded_tail(cuda):
+    """h0 (null means zeros in the kernel), and a tail of dt = 0 steps
+    that must leave the state as it was."""
+    b, S, pad, nh, hd, G, N, chunk = 2, 40, 24, 4, 32, 2, 64, 32
+    rng = np.random.default_rng(6)
+    x, dt, A, B, C, D = _ssd_inputs(rng, cuda, torch.float32, b, S + pad,
+                                    nh, hd, G, N)
+    dt[:, S:] = 0.0
+    h0 = torch.from_numpy(rng.standard_normal((b, nh, hd, N)).astype(
+        np.float32)).to(cuda)
+    y, h = ssd_scan_op(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    ry, rh = ssd_scan_op(x, dt, A, B, C, D, chunk=chunk, h0=h0, plain=True)
+    _, h40 = ssd_scan_op(x[:, :S], dt[:, :S], A, B[:, :S], C[:, :S], D,
+                         chunk=S, h0=h0)
+    torch.cuda.synchronize()
+    tol = SSD_TOLS[torch.float32]
+    np.testing.assert_allclose(y.cpu().numpy(), ry.cpu().numpy(), **tol)
+    np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(), **tol)
+    np.testing.assert_allclose(h.cpu().numpy(), h40.cpu().numpy(), **tol)

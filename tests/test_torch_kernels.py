@@ -333,7 +333,8 @@ def test_cuda_launchers_refuse_cpu_tensors_without_counting():
     paged_decode_op(q, pool, pool, tab, lens)
     flash_prefill_op(q4, q4[:, :, :2], q4[:, :, :2])
     assert tk.launch_counts() == {"paged_decode": 0, "paged_insert": 0,
-                                  "prefix_prefill": 0, "flash_prefill": 0}
+                                  "prefix_prefill": 0, "flash_prefill": 0,
+                                  "ssd_scan": 0}
     assert issubclass(KernelError, RuntimeError)
 
 

@@ -164,7 +164,7 @@ def test_paged_cache_specs_match_jax():
     assert t["block_tables"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b-smoke", "zamba2-7b-smoke",
+@pytest.mark.parametrize("arch", ["zamba2-7b-smoke",
                                   "seamless-m4t-large-v2-smoke",
                                   "moonshot-v1-16b-a3b-smoke",
                                   "internvl2-76b-smoke"])
