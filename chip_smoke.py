@@ -11,7 +11,12 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    at its main path's shapes (yi-6b for the attention kernels, mamba2-2.7b
    for `ssd_scan`), in f32 and bf16, and time kernel, plain version and,
    where one exists, a PyTorch library call that computes the same
-   function (a yardstick the port never calls).
+   function (a yardstick the port never calls). `paged_decode` and
+   `prefix_prefill` also run at the serve phase's own shapes (B=8 tables
+   of 128 pages with contexts up to 1532, B=1 at 1500; 512-token chunks
+   over 512 and 384 prefix tokens); each row prints its achieved rate
+   beside its bound, and `paged_decode` its split count and whether two
+   identical calls gave identical bits.
 3. serve yi-6b: `DisaggCluster` at full yi-6b width (random f32 weights
    from a seed, shared by both engines) serves a trace of 8 requests, some
    sharing a system prompt, with the prefix cache and 512-token chunked
@@ -25,7 +30,9 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    through the plain versions, within a stated bound (with the attention
    projections at standard scales; see `standard_attention_scales`). The
    same comparison in f32 at the serving weights is printed for
-   information. The yi-6b weights are then freed.
+   information. (c) For information, a `torch.profiler` trace of one
+   batch-8 decode step and one 512-token chunk over a 1024-token prefix.
+   The yi-6b weights are then freed.
 5. serve mamba2-2.7b: the same trace through `DisaggCluster` at full
    mamba2-2.7b width on the dense state slab (exact-length prefill, no
    prefix cache, no chunking). Every prefill layer runs `ssd_scan`; its
@@ -107,24 +114,52 @@ def log(*a):
 # timing and bounds
 # ---------------------------------------------------------------------------
 
+SPIN_CYCLES = 40_000_000     # ~20 ms of device spin ahead of a timed run
+L2_BYTES = 50 * 2**20           # H100 L2 cache
+
+
 def time_ms(fn, iters=20, warmup=3):
+    """Device time of one call, from CUDA events around `iters` calls.
+    `fn` is a callable or a list of callables taken in turn (copies of the
+    inputs, so that data a real caller finds cold in L2 is cold here too).
+    The timed calls are queued behind a spin kernel (`torch.cuda._sleep`),
+    so the host has queued them before the device reaches the first one:
+    the events time the device's work, not the host's launch overhead."""
     import torch
-    for _ in range(warmup):
-        fn()
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_copies(nbytes):
+    """How many copies of `nbytes` of inputs, taken in turn, keep each
+    call's reads cold in the L2 cache (at least 3 x L2 in all)."""
+    return max(1, min(16, -(-3 * L2_BYTES // max(nbytes, 1))))
 
 
 def bound(nbytes, flops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def achieved(r):
+    """The row's achieved rate against the resource that bounds it."""
+    if r["bound_by"] == "bytes":
+        return f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s " \
+               f"({r['bound_ms'] / r['ms']:.1%} of the bound)"
+    return f"{r['flops'] / r['ms'] / 1e9:.2f} TF/s " \
+           f"({r['bound_ms'] / r['ms']:.1%} of the bound)"
 
 
 def max_err(out, ref, dtype_name, tols=TOL):
@@ -151,7 +186,8 @@ def kernel_phase(cfg, dtypes):
     import torch
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
-    from repro_torch.kernels.paged_decode.kernel import (paged_decode,
+    from repro_torch.kernels.paged_decode.kernel import (decode_split,
+                                                         paged_decode,
                                                          paged_insert)
     from repro_torch.kernels.paged_decode.ref import (paged_decode_ref,
                                                       paged_insert_ref)
@@ -162,9 +198,98 @@ def kernel_phase(cfg, dtypes):
     page = 16
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1234)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def decode_row(dtype, es, B, pps, lens, trash):
+        """paged_decode over B tables of `pps` pages, timed on enough pool
+        copies that each call reads its K/V cold from HBM, as a decode
+        step's layer does. With `trash`, table slots past each live length
+        point at page 0, as the engine leaves them."""
+        num_pages = B * pps + 1
+        q = randn(B, H, hd, dtype=dtype)
+        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        table = perm.reshape(B, pps).to(torch.int32)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if trash:
+            slot = torch.arange(pps, device=dev)[None]
+            table[slot >= (lens[:, None] + page - 1) // page] = 0
+        n_ctx = int(lens.sum())
+        live_pages = int(((lens + page - 1) // page).sum())
+        nbytes = (2 * B * H * hd * es + 2 * n_ctx * Hkv * hd * es
+                  + live_pages * 4 + B * 4)
+        pools = [(randn(num_pages, page, Hkv, hd, dtype=dtype),
+                  randn(num_pages, page, Hkv, hd, dtype=dtype))
+                 for _ in range(cold_copies(nbytes))]
+        kp, vp = pools[0]
+        out = paged_decode(q, kp, vp, table, lens)
+        again = paged_decode(q, kp, vp, table, lens)
+        ref = paged_decode_ref(q, kp, vp, table, lens)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, dn)
+        pos = torch.arange(pps * page, device=dev)
+        mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+
+        def lib(kp, vp):
+            ks = kp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
+            vs = vp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
+            return sdpa(q[:, :, None], ks, vs, mask=mask)
+        per, n_split = decode_split(B, Hkv, pps, page, sms)
+        return dict(
+            shape=f"B={B} ctx<={int(lens.max())} pps={pps} page={page} H={H} "
+                  f"Hkv={Hkv} hd={hd}",
+            max_abs_err=err, ok=ok and bool(torch.equal(out, again)),
+            repeat_identical=bool(torch.equal(out, again)),
+            ms=time_ms([lambda kp=kp, vp=vp: paged_decode(q, kp, vp, table,
+                                                          lens)
+                        for kp, vp in pools]),
+            plain_ms=time_ms(lambda: paged_decode_ref(q, kp, vp, table,
+                                                      lens)),
+            library_ms=time_ms([lambda kp=kp, vp=vp: lib(kp, vp)
+                                for kp, vp in pools]),
+            library="page gather + scaled_dot_product_attention",
+            bytes=nbytes, flops=4 * n_ctx * H * hd,
+            split_pages=per, n_split=n_split, blocks=B * Hkv * n_split)
+
+    def prefix_row(dtype, es, Sq, P):
+        """prefix_prefill: an Sq-token suffix over a P-token prefix."""
+        npp = P // page
+        qs = randn(1, H, Sq, hd, dtype=dtype)
+        ksf = randn(1, Hkv, Sq, hd, dtype=dtype)
+        vsf = randn(1, Hkv, Sq, hd, dtype=dtype)
+        kp = randn(npp + 1, page, Hkv, hd, dtype=dtype)
+        vp = randn(npp + 1, page, Hkv, hd, dtype=dtype)
+        perm = torch.randperm(npp, generator=gen, device=dev) + 1
+        ptab = perm[None].to(torch.int32)
+        plens = torch.tensor([P], dtype=torch.int32, device=dev)
+        out = prefix_prefill(qs, ksf, vsf, kp, vp, ptab, plens)
+        ref = prefix_prefill_ref(qs, ksf, vsf, kp, vp, ptab, plens)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, dn)
+        pairs = Sq * P + Sq * (Sq + 1) // 2
+        kpos = torch.arange(P + Sq, device=dev)
+        qpos = torch.arange(Sq, device=dev)
+        pmask = (kpos[None, :] <= P + qpos[:, None])[None, None]
+
+        def lib_prefix():
+            kk = kp[ptab[0].long()].reshape(P, Hkv, hd).transpose(0, 1)[None]
+            vv = vp[ptab[0].long()].reshape(P, Hkv, hd).transpose(0, 1)[None]
+            return sdpa(qs, torch.cat([kk, ksf], 2), torch.cat([vv, vsf], 2),
+                        mask=pmask)
+        return dict(
+            shape=f"Sq={Sq} prefix={P} page={page} H={H} Hkv={Hkv} hd={hd}",
+            max_abs_err=err, ok=ok,
+            ms=time_ms(lambda: prefix_prefill(qs, ksf, vsf, kp, vp, ptab,
+                                              plens)),
+            plain_ms=time_ms(lambda: prefix_prefill_ref(
+                qs, ksf, vsf, kp, vp, ptab, plens), iters=5),
+            library_ms=time_ms(lib_prefix),
+            library="page gather + concat + scaled_dot_product_attention",
+            bytes=(2 * H * Sq * hd * es + 2 * Hkv * Sq * hd * es
+                   + 2 * P * Hkv * hd * es + npp * 4 + 4),
+            flops=4 * pairs * H * hd)
 
     results = {}
     for dtype in dtypes:
@@ -174,39 +299,19 @@ def kernel_phase(cfg, dtypes):
 
         # -- paged_decode: B=8, context 1024 (ragged), page 16 -------------
         B, ctx = 8, 1024
-        pps = ctx // page
-        num_pages = B * pps + 1
-        q = randn(B, H, hd, dtype=dtype)
-        kp = randn(num_pages, page, Hkv, hd, dtype=dtype)
-        vp = randn(num_pages, page, Hkv, hd, dtype=dtype)
-        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
-        table = perm.reshape(B, pps).to(torch.int32)
-        lens = torch.tensor([ctx - 37 * i for i in range(B)],
-                            dtype=torch.int32, device=dev)
-        out = paged_decode(q, kp, vp, table, lens)
-        ref = paged_decode_ref(q, kp, vp, table, lens)
-        torch.cuda.synchronize()
-        err, ok = max_err(out, ref, dn)
-        n_ctx = int(lens.sum())
-        nbytes = (2 * B * H * hd * es + 2 * n_ctx * Hkv * hd * es
-                  + table.numel() * 4 + B * 4)
-        flops = 4 * n_ctx * H * hd
-        pos = torch.arange(pps * page, device=dev)
-        mask = (pos[None, :] < lens[:, None])[:, None, None, :]
-
-        def lib_decode():
-            ks = kp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
-            vs = vp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
-            return sdpa(q[:, :, None], ks, vs, mask=mask)
-        rows["paged_decode"] = dict(
-            shape=f"B={B} ctx<={ctx} page={page} H={H} Hkv={Hkv} hd={hd}",
-            max_abs_err=err, ok=ok,
-            ms=time_ms(lambda: paged_decode(q, kp, vp, table, lens)),
-            plain_ms=time_ms(lambda: paged_decode_ref(q, kp, vp, table,
-                                                      lens)),
-            library_ms=time_ms(lib_decode),
-            library="page gather + scaled_dot_product_attention",
-            bytes=nbytes, flops=flops)
+        rows["paged_decode"] = decode_row(
+            dtype, es, B, ctx // page, [ctx - 37 * i for i in range(B)],
+            trash=False)
+        # the serve phase's shapes: B=8 tables of 128 pages, and B=1
+        rows["paged_decode_serve_b8"] = decode_row(
+            dtype, es, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33],
+            trash=True)
+        rows["paged_decode_serve_b1"] = decode_row(
+            dtype, es, 1, 128, [1500], trash=True)
+        table = torch.randperm(B * ctx // page, generator=gen, device=dev) \
+            .reshape(B, ctx // page).to(torch.int32) + 1
+        kp = randn(B * ctx // page + 1, page, Hkv, hd, dtype=dtype)
+        vp = randn(B * ctx // page + 1, page, Hkv, hd, dtype=dtype)
 
         # -- paged_insert: one token per sequence, byte-exact ------------
         kn = randn(B, Hkv, hd, dtype=dtype)
@@ -237,39 +342,10 @@ def kernel_phase(cfg, dtypes):
         del k1, v1, k2, v2
 
         # -- prefix_prefill: a 512-token suffix over a 1024-token prefix -
-        Sq, P = 512, 1024
-        npp = P // page
-        qs = randn(1, H, Sq, hd, dtype=dtype)
-        ksf = randn(1, Hkv, Sq, hd, dtype=dtype)
-        vsf = randn(1, Hkv, Sq, hd, dtype=dtype)
-        ptab = table[:1, :npp].contiguous()
-        plens = torch.tensor([P], dtype=torch.int32, device=dev)
-        out = prefix_prefill(qs, ksf, vsf, kp, vp, ptab, plens)
-        ref = prefix_prefill_ref(qs, ksf, vsf, kp, vp, ptab, plens)
-        torch.cuda.synchronize()
-        err, ok = max_err(out, ref, dn)
-        pairs = Sq * P + Sq * (Sq + 1) // 2
-        nbytes = (2 * H * Sq * hd * es + 2 * Hkv * Sq * hd * es
-                  + 2 * P * Hkv * hd * es + npp * 4 + 4)
-        kpos = torch.arange(P + Sq, device=dev)
-        qpos = torch.arange(Sq, device=dev)
-        pmask = (kpos[None, :] <= P + qpos[:, None])[None, None]
-
-        def lib_prefix():
-            kk = kp[ptab[0].long()].reshape(P, Hkv, hd).transpose(0, 1)[None]
-            vv = vp[ptab[0].long()].reshape(P, Hkv, hd).transpose(0, 1)[None]
-            return sdpa(qs, torch.cat([kk, ksf], 2), torch.cat([vv, vsf], 2),
-                        mask=pmask)
-        rows["prefix_prefill"] = dict(
-            shape=f"Sq={Sq} prefix={P} page={page} H={H} Hkv={Hkv} hd={hd}",
-            max_abs_err=err, ok=ok,
-            ms=time_ms(lambda: prefix_prefill(qs, ksf, vsf, kp, vp, ptab,
-                                              plens)),
-            plain_ms=time_ms(lambda: prefix_prefill_ref(
-                qs, ksf, vsf, kp, vp, ptab, plens), iters=5),
-            library_ms=time_ms(lib_prefix),
-            library="page gather + concat + scaled_dot_product_attention",
-            bytes=nbytes, flops=4 * pairs * H * hd)
+        rows["prefix_prefill"] = prefix_row(dtype, es, 512, 1024)
+        # the serve phase's chunks: over a 512- and a 384-token prefix
+        rows["prefix_prefill_p512"] = prefix_row(dtype, es, 512, 512)
+        rows["prefix_prefill_p384"] = prefix_row(dtype, es, 512, 384)
 
         # -- flash_prefill: S=1024, causal --------------------------------
         S = 1024
@@ -294,12 +370,16 @@ def kernel_phase(cfg, dtypes):
 
         for name, r in rows.items():
             r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], dn)
-            log(f"kernel {name:14s} {dn:8s} {r['shape']}: "
+            r["achieved"] = achieved(r)
+            split = (f" n_split={r['n_split']} ({r['split_pages']} pages, "
+                     f"{r['blocks']} blocks)" if "n_split" in r else "")
+            log(f"kernel {name:21s} {dn:8s} {r['shape']}: "
                 f"max_abs_err={r['max_abs_err']:.3e} "
                 f"{'ok' if r['ok'] else 'MISMATCH'} "
                 f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                 f"library_ms={r['library_ms']:.4f} "
-                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"achieved={r['achieved']}{split}")
         results[dn] = rows
         bad = [n for n, r in rows.items() if not r["ok"]]
         if bad:
@@ -687,10 +767,15 @@ def device_profile(fn, label):
             n += 1
     busy = sum(by_name.values())
     top = [(k[:60], round(v, 3)) for k, v in by_name.most_common(5)]
+    # the port's own kernels, by the name of the op they serve
+    ported = {op: round(sum(v for k, v in by_name.items() if op in k), 3)
+              for op in SOURCES if any(op in k for k in by_name)}
     out = dict(wall_ms=wall_ms, device_busy_ms=busy, kernels=n,
-               idle_share=1 - busy / wall_ms if wall_ms else None, top=top)
+               idle_share=1 - busy / wall_ms if wall_ms else None, top=top,
+               ported_ms=ported)
     log(f"profile {label}: wall={wall_ms:.3f}ms device_busy={busy:.3f}ms "
-        f"idle_share={out['idle_share']:.3f} kernels={n} top={top}")
+        f"idle_share={out['idle_share']:.3f} kernels={n} top={top} "
+        f"ported_ms={ported}")
     return out
 
 
@@ -718,6 +803,43 @@ def mamba_profile(cfg, params):
             lambda: model.decode_step(params, cache, step_toks),
             f"{cfg.name} decode step, batch 8"),
     }
+
+
+def yi_profile(cfg, params):
+    """Where a yi-6b step's time goes, f32: one decode step at batch 8 over
+    the serve trace's prompt lengths (paged_insert + paged_decode in every
+    layer), and one 512-token chunk over a 1024-token prefix
+    (prefix_prefill in every layer), on an Engine's paged cache."""
+    import torch
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, params, max_batch=8, max_len=2048)   # shares params
+    cache = eng._empty_cache()
+    ps = eng._kv.page_size
+    pps = cache["block_tables"].shape[1]
+    lens = [1500, 640, 200, 1100, 900, 300, 1280, 520]
+    for b, n in enumerate(lens):
+        cache["block_tables"][b] = torch.arange(1 + b * pps,
+                                                1 + (b + 1) * pps)
+        cache["pos"][b] = n
+    dev = eng.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    step = torch.randint(1, cfg.vocab_size, (8,), device=dev, generator=gen)
+    chunk = torch.randint(1, cfg.vocab_size, (1, 512), device=dev,
+                          generator=gen)
+    pools = {k: v for k, v in cache.items() if k.startswith("seg")}
+    out = {
+        "decode_b8": device_profile(
+            lambda: eng.model.decode_step_paged(eng.params, cache, step),
+            f"{cfg.name} decode step, batch 8, contexts 200..1500"),
+        "chunk_512_over_1024": device_profile(
+            lambda: eng.model.forward(
+                eng.params, chunk, return_cache=True, prefix_pages=pools,
+                prefix_table=cache["block_tables"][:1, :1024 // ps],
+                prefix_len=1024, pos_offset=1024),
+            f"{cfg.name} 512-token chunk over a 1024-token prefix"),
+    }
+    del eng, cache, pools
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +923,7 @@ def main() -> int:
     record["check_tokens"] = smoke_tokens_check("yi-6b-smoke",
                                                 prefix_cache=True,
                                                 chunk_tokens=16)
+    record["profile_yi"] = yi_profile(cfg, params)
     record["check_logits"] = logits_check(cfg, params)
     del params                  # one model's weights on the card at a time
     gc.collect()

@@ -3,22 +3,37 @@
 // paged_decode replaces the Pallas TPU kernel
 // src/repro/kernels/paged_decode/kernel.py (paged_decode, _kernel and
 // _dbuf_kernel; the TPU's double-buffered DMA schedule computes the same
-// function, so both map onto this one kernel): one query token per
+// function, so both map onto this one design): one query token per
 // sequence, GQA, online softmax over the pages of the block table, masked
 // by `lens`, optional soft cap.
 //
 // Bound on the H100: bytes. Each (sequence, kv head) reads its context's
 // K and V once and does 4*G*hd flops per position, ~2 flops a byte in
-// f32. So the kernel runs one block per (sequence, KV head): each K/V
-// page is read once for all G query heads of its group, straight from the
-// pool through the block table (no gather first), and the block walks
-// only ceil(lens / page) table entries, so trash slots past the live
-// length are never read. Pages are taken up to 64 rows at a time into
-// shared memory; one warp per query head computes scores and the softmax
-// update, then all threads fold the tile into the (G, hd) accumulator.
-// With B * Hkv blocks (32 at the main path's B = 8, yi-6b) the card is
-// far from full; splitting the context across blocks (flash-decoding)
-// and vector loads are later work.
+// f32. The TPU walks the pages of one sequence in order; here the context
+// is split across blocks (flash-decoding) so that enough bytes are in
+// flight to keep HBM busy:
+//
+// - paged_decode_split_kernel, grid (B, Hkv, n_split): a block owns one
+//   (sequence, kv head) and a range of `split_pages` whole pages. It reads
+//   each K/V row once for all G = H / Hkv query heads of the group, in
+//   32-row tiles copied with 16-byte cp.async into a two-stage ring in
+//   shared memory, so the next tile is in flight while the current one is
+//   scored. Each warp reads the tile's table entries once (one page per
+//   lane) and hands them round by shuffle. Only live positions are copied
+//   (rows past `lens` are zero-filled and masked), so trash-padded table
+//   slots are never read. Scores: lane = row, warp = a group of query
+//   heads, K read as 16-byte vectors; the softmax of a tile is warp-local.
+//   P.V: each thread owns 4 output columns of up to 4 heads. The partial
+//   (m, l, acc[G, hd]) goes to an f32 workspace; a split that starts at or
+//   past lens[b] writes the empty partial (NEG_INF, 0, 0) and exits.
+// - paged_decode_combine_kernel, one block per (sequence, head): merges
+//   the live splits in a fixed order with corr = exp(m_i - m_max), then
+//   divides by max(l, 1e-37). No atomics: outputs repeat bit for bit, and
+//   lens[b] = 0 gives 0 as the TPU kernel does.
+//
+// The split count is chosen on the host from shapes alone
+// (kernels/paged_decode/kernel.py::decode_split); lens never goes back to
+// the host.
 //
 // paged_insert replaces src/repro/kernels/paged_decode/kernel.py
 // (paged_insert, _insert_kernel): one block per sequence writes its new
@@ -26,166 +41,313 @@
 // Idle decode slots all target the reserved trash page 0, so several
 // blocks may write the same trash row at once: benign, and never a live
 // page (the engine points every idle slot's table row at page 0).
-#include "attn_common.cuh"
+#include "attn_mma.cuh"
 
 using namespace attn;
 
-constexpr int DEC_NT = 128;            // 4 warps
-constexpr int DEC_ROWS = 64;           // kv positions per tile (2 per lane)
+constexpr int DEC_NT = 128;       // 4 warps
+constexpr int DEC_ROWS = 32;      // kv positions a tile: one per lane
+constexpr int DEC_GMAX = 16;      // largest query-head group H / Hkv
+constexpr int DEC_SPT = DEC_GMAX / (DEC_NT / 32);   // score heads a thread
 
-template <int HD>
-__host__ __device__ constexpr size_t decode_smem_floats(int G) {
-  return (size_t)G * (HD + 1)          // Qs
-         + (size_t)DEC_ROWS * (HD + 1)  // Ks
-         + (size_t)DEC_ROWS * HD        // Vs
-         + (size_t)G * DEC_ROWS         // Ps
-         + (size_t)G * HD               // As: accumulators
-         + 3 * (size_t)G;               // Ms, Ls, Cs
-}
+// Shared memory: K and V rings in the storage type (K rows padded by 16
+// bytes so a quarter-warp's 16-byte row reads hit distinct banks), then
+// Q (G, hd), P (G, DEC_ROWS) and the tile's corrections (G) in f32.
+template <typename T, int HD>
+struct DecodeSmem {
+  static constexpr int EPC = 16 / sizeof(T);   // elements per 16 bytes
+  static constexpr int KS = HD + EPC;
+  static constexpr int VS = HD;
+  static constexpr size_t V_OFF = 2 * DEC_ROWS * KS * sizeof(T);
+  static constexpr size_t Q_OFF = V_OFF + 2 * DEC_ROWS * VS * sizeof(T);
+  static size_t bytes(int G) {
+    return Q_OFF + (size_t)G * (HD + DEC_ROWS + 1) * sizeof(float);
+  }
+};
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(
+__global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kp,
     const T* __restrict__ vp, const int* __restrict__ table,
-    const int* __restrict__ lens, T* __restrict__ o, int H, int Hkv,
-    int page, int pps, float scale, float softcap) {
-  extern __shared__ float smem[];
+    const int* __restrict__ lens, float* __restrict__ ws_acc,
+    float* __restrict__ ws_ml, int H, int Hkv, int page, int pps,
+    int split_pages, float scale, float softcap) {
+  using L = DecodeSmem<T, HD>;
+  constexpr int CPR = HD / L::EPC;             // 16-byte chunks a row
+  constexpr int NPG = DEC_NT / (HD / 4);       // P.V head groups
+  constexpr int APT = (DEC_GMAX + NPG - 1) / NPG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = H / Hkv;
-  const int b = blockIdx.x, kh = blockIdx.y;
+  const int b = blockIdx.x, kh = blockIdx.y, sp = blockIdx.z;
+  const int n_split = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* Qs = smem;
-  float* Ks = Qs + G * (HD + 1);
-  float* Vs = Ks + DEC_ROWS * (HD + 1);
-  float* Ps = Vs + DEC_ROWS * HD;
-  float* As = Ps + G * DEC_ROWS;
-  float* Ms = As + G * HD;
-  float* Ls = Ms + G;
-  float* Cs = Ls + G;
+  const int len = min(lens[b], pps * page);
+  const int start = sp * split_pages * page;
+  const int end = min(len, start + split_pages * page);
+  // partial of head kh * G + g: slot slot0 + g * n_split
+  const long long slot0 =
+      ((long long)b * H + (long long)kh * G) * n_split + sp;
+
+  if (start >= end) {
+    for (int i = tid; i < G * HD; i += DEC_NT)
+      ws_acc[(slot0 + (long long)(i / HD) * n_split) * HD + i % HD] = 0.f;
+    for (int g = tid; g < G; g += DEC_NT) {
+      ws_ml[2 * (slot0 + (long long)g * n_split)] = NEG_INF;
+      ws_ml[2 * (slot0 + (long long)g * n_split) + 1] = 0.f;
+    }
+    return;
+  }
+
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = reinterpret_cast<T*>(smem_raw + L::V_OFF);
+  float* Qs = reinterpret_cast<float*>(smem_raw + L::Q_OFF);
+  float* Ps = Qs + G * HD;
+  float* Cs = Ps + G * DEC_ROWS;
 
   const T* qb = q + ((long long)b * H + (long long)kh * G) * HD;
-  for (int idx = tid; idx < G * HD; idx += DEC_NT) {
-    Qs[(idx / HD) * (HD + 1) + idx % HD] = to_f32(qb[idx]);
-    As[idx] = 0.f;
-  }
-  for (int g = tid; g < G; g += DEC_NT) {
-    Ms[g] = NEG_INF;
-    Ls[g] = 0.f;
-  }
-  const int len = min(lens[b], pps * page);
-  const int* tab = table + (long long)b * pps;
-  const int rows = max(1, DEC_ROWS / page) * page;   // whole pages a tile
-  const long long row_elems = (long long)Hkv * HD;
-  __syncthreads();
+  for (int i = tid; i < G * HD; i += DEC_NT) Qs[i] = to_f32(qb[i]);
 
-  for (int k0 = 0; k0 < len; k0 += rows) {
-    for (int idx = tid; idx < rows * HD; idx += DEC_NT) {
-      const int r = idx / HD, d = idx % HD, pos = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (pos < len) {
-        const long long src = ((long long)tab[pos / page] * page + pos % page)
-                              * row_elems + (long long)kh * HD + d;
-        kx = to_f32(kp[src]);
-        vx = to_f32(vp[src]);
-      }
-      Ks[r * (HD + 1) + d] = kx;
-      Vs[r * HD + d] = vx;
-    }
-    __syncthreads();
-    // scores and the softmax update: one warp per query head
-    for (int g = warp; g < G; g += DEC_NT / 32) {
-      float sv[2];
-      float mx = NEG_INF;
+  const int* tab = table + (long long)b * pps;
+  const long long row_elems = (long long)Hkv * HD;
+  const int ntiles = (end - start + DEC_ROWS - 1) / DEC_ROWS;
+  auto issue = [&](int t, int buf) {
+    const int k0 = start + t * DEC_ROWS;
+    const int p0 = k0 / page;
+    const int p_last = (min(k0 + DEC_ROWS, end) - 1) / page;
+    // one table read per page: lane j holds page p0 + j of the tile
+    const int my_pid = p0 + lane <= p_last ? tab[p0 + lane] : 0;
+    T* kd = Ks + buf * DEC_ROWS * L::KS;
+    T* vd = Vs + buf * DEC_ROWS * L::VS;
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int r = lane + 32 * t;
-        float s = NEG_INF;
-        if (r < rows) {
-          float acc = 0.f;
-#pragma unroll 8
-          for (int d = 0; d < HD; ++d)
-            acc = fmaf(Qs[g * (HD + 1) + d], Ks[r * (HD + 1) + d], acc);
-          s = score_post(acc, scale, softcap);
-          if (k0 + r >= len) s = NEG_INF;
+    for (int base = 0; base < DEC_ROWS * CPR; base += DEC_NT) {
+      const int idx = base + tid;
+      const int r = idx / CPR, c = (idx % CPR) * L::EPC;
+      const int pos = k0 + r;
+      const int pid =
+          __shfl_sync(0xffffffffu, my_pid, (pos / page - p0) & 31);
+      if (r < DEC_ROWS) {
+        T* kdst = kd + r * L::KS + c;
+        T* vdst = vd + r * L::VS + c;
+        if (pos < end) {
+          const long long src =
+              ((long long)pid * page + pos % page) * row_elems +
+              (long long)kh * HD + c;
+          cp_async16(kdst, kp + src);
+          cp_async16(vdst, vp + src);
+        } else {
+          zero16(kdst);
+          zero16(vdst);
         }
-        sv[t] = s;
-        mx = fmaxf(mx, s);
       }
+    }
+  };
+
+  // score heads of this thread: warp + 4 i; their (m, l), replicated
+  // across the warp's lanes
+  float m[DEC_SPT], l[DEC_SPT];
+#pragma unroll
+  for (int i = 0; i < DEC_SPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+  // P.V: output columns 4 c .. 4 c + 3 of heads hg + NPG a
+  const int c4 = tid % (HD / 4), hg = tid / (HD / 4);
+  float acc[APT][4];
+#pragma unroll
+  for (int a = 0; a < APT; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+
+  issue(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();       // tile t landed; tile t - 1's buffers are free
+    if (t + 1 < ntiles) issue(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const T* kt = Ks + (t & 1) * DEC_ROWS * L::KS;
+    const T* vt = Vs + (t & 1) * DEC_ROWS * L::VS;
+    const int k0 = start + t * DEC_ROWS;
+
+    // scores of row `lane` for this warp's heads, then the warp-local
+    // softmax update of each head
+    float s[DEC_SPT];
+#pragma unroll
+    for (int i = 0; i < DEC_SPT; ++i) s[i] = 0.f;
+    const T* krow = kt + lane * L::KS;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += L::EPC) {
+      float kf[L::EPC];
+      load16_f32(krow + d, kf);
+#pragma unroll
+      for (int i = 0; i < DEC_SPT; ++i) {
+        const int g = warp + 4 * i;
+        if (g < G) {
+          const float* qg = Qs + g * HD + d;
+#pragma unroll
+          for (int e = 0; e < L::EPC; e += 4) {
+            const float4 qv = load4_f32(qg + e);
+            s[i] = fmaf(qv.x, kf[e], s[i]);
+            s[i] = fmaf(qv.y, kf[e + 1], s[i]);
+            s[i] = fmaf(qv.z, kf[e + 2], s[i]);
+            s[i] = fmaf(qv.w, kf[e + 3], s[i]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < DEC_SPT; ++i) {
+      const int g = warp + 4 * i;
+      if (g >= G) continue;
+      float v = score_post(s[i], scale, softcap);
+      if (k0 + lane >= end) v = NEG_INF;
+      float mx = v;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int r = lane + 32 * t;
-        if (r < rows) {
-          const float p = expf(sv[t] - m_new);
-          Ps[g * DEC_ROWS + r] = p;
-          rs += p;
-        }
-      }
+      const float m_new = fmaxf(m[i], mx);
+      const float p = expf(v - m_new);
+      float rs = p;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Cs[g] = corr;
-        Ls[g] = Ls[g] * corr + rs;
-        Ms[g] = m_new;
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+      Ps[g * DEC_ROWS + lane] = p;
+      if (lane == 0) Cs[g] = corr;
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P V over the tile's live rows (4 at a time)
+#pragma unroll
+    for (int a = 0; a < APT; ++a) {
+      const int g = hg + NPG * a;
+      if (g < G) {
+        const float corr = Cs[g];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][e] *= corr;
       }
     }
-    __syncthreads();
-    for (int idx = tid; idx < G * HD; idx += DEC_NT) {
-      const int g = idx / HD, d = idx % HD;
-      float a = As[idx] * Cs[g];
-      for (int r = 0; r < rows; ++r)
-        a = fmaf(Ps[g * DEC_ROWS + r], Vs[r * HD + d], a);
-      As[idx] = a;
+    const int rows = min(DEC_ROWS, end - k0);
+    for (int r = 0; r < rows; r += 4) {
+      float4 vv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        vv[u] = load4_f32(vt + (r + u) * L::VS + 4 * c4);
+#pragma unroll
+      for (int a = 0; a < APT; ++a) {
+        const int g = hg + NPG * a;
+        if (g < G) {
+          const float4 p = load4_f32(Ps + g * DEC_ROWS + r);
+          const float pu[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[a][0] = fmaf(pu[u], vv[u].x, acc[a][0]);
+            acc[a][1] = fmaf(pu[u], vv[u].y, acc[a][1]);
+            acc[a][2] = fmaf(pu[u], vv[u].z, acc[a][2]);
+            acc[a][3] = fmaf(pu[u], vv[u].w, acc[a][3]);
+          }
+        }
+      }
     }
-    __syncthreads();
   }
-  T* ob = o + ((long long)b * H + (long long)kh * G) * HD;
-  for (int idx = tid; idx < G * HD; idx += DEC_NT)
-    ob[idx] = from_f32<T>(As[idx] / fmaxf(Ls[idx / HD], DEN_MIN));
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < APT; ++a) {
+    const int g = hg + NPG * a;
+    if (g < G)
+      *reinterpret_cast<float4*>(
+          ws_acc + (slot0 + (long long)g * n_split) * HD + 4 * c4) =
+          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < DEC_SPT; ++i) {
+      const int g = warp + 4 * i;
+      if (g < G) {
+        ws_ml[2 * (slot0 + (long long)g * n_split)] = m[i];
+        ws_ml[2 * (slot0 + (long long)g * n_split) + 1] = l[i];
+      }
+    }
+  }
+}
+
+// One block of HD threads per (sequence, head): merge the live splits in
+// split order, then o = acc / max(l, 1e-37) in the storage type.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD) paged_decode_combine_kernel(
+    const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
+    const int* __restrict__ lens, T* __restrict__ o, int H, int page,
+    int pps, int split_pages, int n_split) {
+  const int bh = blockIdx.x, d = threadIdx.x;
+  const int len = min(lens[bh / H], pps * page);
+  const int split_rows = split_pages * page;
+  const int n_live = min(n_split, (len + split_rows - 1) / split_rows);
+  const float* ml = ws_ml + (long long)bh * n_split * 2;
+  const float* acc = ws_acc + (long long)bh * n_split * HD;
+  float m_max = NEG_INF;
+  for (int s = 0; s < n_live; ++s) m_max = fmaxf(m_max, ml[2 * s]);
+  float l = 0.f, a = 0.f;
+  for (int s = 0; s < n_live; ++s) {
+    const float corr = expf(ml[2 * s] - m_max);
+    l += ml[2 * s + 1] * corr;
+    a += acc[(long long)s * HD + d] * corr;
+  }
+  o[(long long)bh * HD + d] = from_f32<T>(a / fmaxf(l, DEN_MIN));
 }
 
 template <typename T, int HD>
 static cudaError_t launch_decode(const void* q, const void* kp,
                                  const void* vp, const void* table,
-                                 const void* lens, void* o, int B, int H,
-                                 int Hkv, int page, int pps, float scale,
+                                 const void* lens, void* o, void* ws, int B,
+                                 int H, int Hkv, int page, int pps,
+                                 int split_pages, int n_split, float scale,
                                  float softcap, cudaStream_t stream) {
-  auto kern = paged_decode_kernel<T, HD>;
-  const size_t bytes = decode_smem_floats<HD>(H / Hkv) * sizeof(float);
+  auto kern = paged_decode_split_kernel<T, HD>;
+  const size_t bytes = DecodeSmem<T, HD>::bytes(H / Hkv);
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(B, Hkv);
-  kern<<<grid, DEC_NT, bytes, stream>>>(
+  float* ws_acc = static_cast<float*>(ws);
+  float* ws_ml = ws_acc + (size_t)B * H * n_split * HD;
+  kern<<<dim3(B, Hkv, n_split), DEC_NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(lens), static_cast<T*>(o), H, Hkv, page, pps,
-      scale, softcap);
+      static_cast<const int*>(lens), ws_acc, ws_ml, H, Hkv, page, pps,
+      split_pages, scale, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_decode_combine_kernel<T, HD><<<B * H, HD, 0, stream>>>(
+      ws_acc, ws_ml, static_cast<const int*>(lens), static_cast<T*>(o), H,
+      page, pps, split_pages, n_split);
   return cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q/o (B, H, hd), pools (num_pages,
-// page, Hkv, hd), table (B, pps) i32, lens (B,) i32, all contiguous.
-// page must be <= 64. Returns a cudaError_t code.
+// page, Hkv, hd), table (B, pps) i32, lens (B,) i32, all contiguous, the
+// pools on 16 bytes; H / Hkv <= 16. ws: f32 workspace of B * H * n_split *
+// (hd + 2) floats, 16-byte aligned. Launches the split kernel and the
+// combine kernel on `stream`. Returns a cudaError_t code.
 extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
                             const void* vp, const void* table,
-                            const void* lens, void* o, int B, int H, int Hkv,
-                            int page, int pps, float scale, float softcap,
-                            void* stream) {
+                            const void* lens, void* o, void* ws, int B,
+                            int H, int Hkv, int page, int pps,
+                            int split_pages, int n_split, float scale,
+                            float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (page > DEC_ROWS) return static_cast<int>(cudaErrorInvalidValue);
+  if (H % Hkv || H / Hkv > DEC_GMAX || split_pages < 1 || n_split < 1 ||
+      (long long)n_split * split_pages < pps)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     ATTN_DISPATCH_HD(hd, HD, err = launch_decode<float, HD>(
-        q, kp, vp, table, lens, o, B, H, Hkv, page, pps, scale, softcap, s));
+        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
+        n_split, scale, softcap, s));
   } else if (dtype == 1) {
     ATTN_DISPATCH_HD(hd, HD, err = launch_decode<__nv_bfloat16, HD>(
-        q, kp, vp, table, lens, o, B, H, Hkv, page, pps, scale, softcap, s));
+        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
+        n_split, scale, softcap, s));
   }
   return static_cast<int>(err);
 }

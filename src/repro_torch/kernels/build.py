@@ -35,8 +35,8 @@ SIGNATURES = {
                       _I, _F, _F, _P],
     "prefix_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _I, _F, _F, _P],
-    "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                     _F, _P],
+    "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _F, _F, _P],
     "paged_insert": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _I, _I, _P],
@@ -150,6 +150,21 @@ def require_cuda(name: str, *tensors: torch.Tensor):
     if dev.index not in (None, torch.cuda.current_device()):
         raise ValueError(f"{name}: tensors on {dev} but the current device "
                          f"is cuda:{torch.cuda.current_device()}")
+
+
+def require_aligned(name: str, *tensors: torch.Tensor):
+    """The 16-byte vector copies of the kernels need every tensor to start
+    on 16 bytes and every stride of a dim longer than 1 to be a whole
+    number of 16-byte chunks (the last dim stays contiguous). Raise
+    otherwise: the kernels have no scalar path."""
+    for t in tensors:
+        chunk = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+                s % chunk for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                if n > 1):
+            raise ValueError(f"{name}: tensors must start on 16 bytes with "
+                             f"strides in 16-byte units, got offset "
+                             f"{t.data_ptr() % 16} and strides {t.stride()}")
 
 
 def bhs_strides(*tensors):

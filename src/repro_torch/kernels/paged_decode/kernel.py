@@ -7,18 +7,47 @@ versions in `ref.py`.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from ..build import (DTYPE_CODES, HEAD_DIMS, check, library, require_cuda,
-                     stream_of)
+from ..build import (DTYPE_CODES, HEAD_DIMS, check, library, require_aligned,
+                     require_cuda, stream_of)
+
+
+DEC_ROWS = 32          # kv positions a tile of the split kernel
+DEC_GMAX = 16          # largest query-head group H / Hkv it takes
+
+
+def decode_split(B: int, Hkv: int, pps: int, page: int,
+                 sm_count: int = 132):
+    """(pages per split, number of splits) of the split kernel, from shapes
+    alone (never from `lens`: the decode loop does not sync with the host).
+
+    Pages per split is the largest power of two that still gives
+    B * Hkv * n_split >= 2 * sm_count blocks, but no fewer pages than fill
+    one 32-row tile, and no more than the table has."""
+    least = max(1, -(-DEC_ROWS // page))
+    per = 1
+    while per < pps:
+        per *= 2
+    while per > least and B * Hkv * -(-pps // per) < 2 * sm_count:
+        per //= 2
+    per = max(1, min(per, pps))
+    return per, -(-pps // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
                  softcap: float = 0.0):
     """q: (B, H, hd); k/v_pages: (num_pages, page, Hkv, hd); block_table:
-    (B, pps) i32; lens: (B,) i32 -> (B, H, hd)."""
+    (B, pps) i32; lens: (B,) i32 -> (B, H, hd). Two launches (split,
+    combine) count as one call of the op."""
     require_cuda("paged_decode", q, k_pages, v_pages, block_table, lens)
     B, H, hd = q.shape
     _, page, Hkv, _ = k_pages.shape
@@ -26,21 +55,27 @@ def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
             or v_pages.dtype != q.dtype:
         raise TypeError(f"paged_decode: f32/bf16 of one dtype, got "
                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if hd not in HEAD_DIMS or H % Hkv or page > 64:
+    if hd not in HEAD_DIMS or H % Hkv or H // Hkv > DEC_GMAX:
         raise ValueError(f"paged_decode: unsupported hd={hd}, H={H}, "
-                         f"Hkv={Hkv}, page={page}")
+                         f"Hkv={Hkv}")
     if block_table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("paged_decode: block_table and lens must be int32")
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     block_table, lens = block_table.contiguous(), lens.contiguous()
+    require_aligned("paged_decode", k_pages, v_pages)
+    pps = block_table.shape[1]
+    per, n_split = decode_split(B, Hkv, pps, page,
+                                _sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     check(library().paged_decode(
         DTYPE_CODES[q.dtype], hd, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, H, Hkv, page, block_table.shape[1], float(scale),
-        float(softcap or 0.0), stream_of(q)), "paged_decode")
+        out.data_ptr(), ws.data_ptr(), B, H, Hkv, page, pps, per, n_split,
+        float(scale), float(softcap or 0.0), stream_of(q)), "paged_decode")
     paged_decode.launches += 1
     return out
 

@@ -35,6 +35,51 @@ def paged_decode_ref(q, k_pages, v_pages, block_table, lens, *,
     return o.to(q.dtype)
 
 
+def paged_decode_split_ref(q, k_pages, v_pages, block_table, lens, *,
+                           split_pages: int, scale=None,
+                           softcap: float = 0.0):
+    """The CUDA kernel's split-and-merge algorithm in plain PyTorch (the
+    tests hold it against the JAX kernel; the op never runs it). Split s
+    covers table slots [s * split_pages, (s + 1) * split_pages) and gives a
+    partial (m, l, acc) over its live positions, or the empty partial
+    (NEG_INF, 0, 0) when it starts at or past `lens`. The partials merge in
+    split order with corr = exp(m_s - m_max), then acc / max(l, 1e-37).
+    Same shapes as `paged_decode_ref`."""
+    B, H, hd = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    pps = block_table.shape[1]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    live_len = lens.long().clamp(max=pps * page)
+    qf = q.float().reshape(B, Hkv, G, hd)
+    parts = []
+    for p0 in range(0, pps, split_pages):
+        tab = block_table[:, p0:p0 + split_pages].long()
+        k = k_pages[tab].reshape(B, -1, Hkv, hd).float()
+        v = v_pages[tab].reshape(B, -1, Hkv, hd).float()
+        s = torch.einsum("bkgd,brkd->bkgr", qf, k) * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        pos = p0 * page + torch.arange(k.shape[1], device=q.device)
+        live = pos[None, :] < live_len[:, None]                  # (B, R)
+        s = torch.where(live[:, None, None, :], s, NEG_INF)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        empty = ~live.any(-1)[:, None, None]
+        m = torch.where(empty, NEG_INF, m)
+        p = torch.where(empty[..., None], 0.0, p)
+        parts.append((m, p.sum(-1), torch.einsum("bkgr,brkd->bkgd", p, v)))
+    m_max = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = torch.zeros_like(m_max)
+    acc = torch.zeros_like(qf)
+    for m, ls, a in parts:                         # fixed order, no atomics
+        corr = torch.exp(m - m_max)
+        l = l + ls * corr
+        acc = acc + a * corr[..., None]
+    o = acc / torch.clamp(l, min=1e-37)[..., None]
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
 def paged_insert_ref(k_pages, v_pages, k_new, v_new, page_idx, offset):
     """Write one new token per sequence into its page, in place: k/v_pages
     (num_pages, page, Hkv, hd); k/v_new (B, Hkv, hd); page_idx/offset (B,)

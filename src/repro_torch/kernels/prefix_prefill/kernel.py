@@ -3,7 +3,10 @@
 Takes the kernel layout of the JAX function, q (B, H, Sq, hd) and
 k/v_suf (B, Hkv, Sq, hd), in any strides with a contiguous last dim: the
 model's (B, S, H, hd) tensors come in as transposed views, never copied.
-CUDA tensors only; each launch adds one to `prefix_prefill.launches`.
+The kernel copies rows with 16-byte vector copies, so each of those
+tensors must start on 16 bytes with strides in 16-byte units; the
+wrapper raises on any other view. CUDA tensors only; each launch adds one
+to `prefix_prefill.launches`.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import math
 import torch
 
 from ..build import (DTYPE_CODES, HEAD_DIMS, bhs_strides, check, library,
-                     require_cuda, stream_of)
+                     require_aligned, require_cuda, stream_of)
 
 
 def prefix_prefill(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
@@ -40,6 +43,7 @@ def prefix_prefill(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
     prefix_table = prefix_table.contiguous()
     prefix_lens, suffix_lens = prefix_lens.contiguous(), \
         suffix_lens.contiguous()
+    require_aligned("prefix_prefill", q, k_suf, v_suf, k_pages, v_pages)
     out = torch.empty_like(q)       # keeps q's strides (dense views)
     strides = bhs_strides(q, k_suf, v_suf, out)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)

@@ -19,7 +19,9 @@ from repro_torch import kernels as tk
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_op
 from repro_torch.kernels.paged_decode.ops import (paged_decode_op,
                                                   paged_insert_op)
+from repro_torch.kernels.paged_decode.kernel import decode_split
 from repro_torch.kernels.paged_decode.ref import (paged_decode_ref,
+                                                  paged_decode_split_ref,
                                                   paged_insert_ref)
 from repro_torch.kernels.prefix_prefill.ops import prefix_prefill_op
 from repro_torch.kernels.prefix_prefill.ref import prefix_prefill_ref
@@ -97,6 +99,157 @@ def test_paged_decode_kernel(cuda, shape, dtype):
     got = paged_decode_op(q, kp, vp, table, lens)
     _close(got, paged_decode_ref(q, kp, vp, table, lens), dtype)
     _close(paged_decode_op(q, kp, vp, table, lens, dbuf=True), got, dtype)
+
+
+def _serve_decode_inputs(rng, dev, dtype, B, lens, pps=128, page=16):
+    """yi-6b decode at the serve phase's shapes: H=32, Hkv=4, hd 128, a
+    table of `pps` pages of `page`; slots past each live length point at
+    the trash page 0 (filled with large values), as the engine leaves
+    them."""
+    H, Hkv, hd = 32, 4, 128
+    pages = 1 + B * pps
+    q = _t(rng, dev, dtype, B, H, hd)
+    kp = _t(rng, dev, dtype, pages, page, Hkv, hd)
+    vp = _t(rng, dev, dtype, pages, page, Hkv, hd)
+    kp[0], vp[0] = 50.0, -50.0
+    table = (1 + rng.permutation(B * pps)).reshape(B, pps).astype(np.int32)
+    for b, n in enumerate(lens):
+        table[b, -(-n // page):] = 0
+    return (q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+DECODE_SERVE_CASES = {
+    # B=8 as the serve phase's decode batch, lengths up to 1532
+    "serve_b8": [1532, 1100, 903, 640, 517, 300, 200, 33],
+    "b1_ctx1500": [1500],
+    # splits of 8 pages (128 rows): most splits of most rows are empty
+    "empty_splits": [1, 17, 128, 129, 0, 255, 1532, 2],
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(DECODE_SERVE_CASES))
+def test_paged_decode_kernel_serve_shapes(cuda, case, dtype):
+    """The split kernel at the serve path's shapes against the one-pass
+    plain version and the split-and-merge plain version; two identical
+    calls give identical bits (no atomics); lens = 0 gives 0."""
+    lens = DECODE_SERVE_CASES[case]
+    args = _serve_decode_inputs(np.random.default_rng(7), cuda, dtype,
+                                len(lens), lens)
+    before = tk.launch_counts()["paged_decode"]
+    got = paged_decode_op(*args)
+    again = paged_decode_op(*args)
+    assert tk.launch_counts()["paged_decode"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    live = [b for b, n in enumerate(lens) if n > 0]
+    _close(got[live], paged_decode_ref(*args)[live], dtype)
+    per, _ = decode_split(len(lens), 4, 128, 16,
+                          torch.cuda.get_device_properties(cuda)
+                          .multi_processor_count)
+    _close(got, paged_decode_split_ref(*args, split_pages=per), dtype)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.count_nonzero(got[b]) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_softcap_and_groups(cuda, dtype):
+    """Soft cap, and query-head groups of 1, 4 and 16 (the kernel's
+    largest)."""
+    rng = np.random.default_rng(8)
+    for H, Hkv in ((8, 8), (16, 4), (32, 2)):
+        B, hd, pages, page, pps = 3, 64, 40, 16, 12
+        q = _t(rng, cuda, dtype, B, H, hd)
+        kp = _t(rng, cuda, dtype, pages, page, Hkv, hd)
+        vp = _t(rng, cuda, dtype, pages, page, Hkv, hd)
+        table = torch.from_numpy(rng.permutation(pages)[:B * pps]
+                                 .reshape(B, pps).astype(np.int32)).to(cuda)
+        lens = torch.tensor([190, 7, 100], dtype=torch.int32, device=cuda)
+        got = paged_decode_op(q, kp, vp, table, lens, softcap=3.0)
+        _close(got, paged_decode_ref(q, kp, vp, table, lens, softcap=3.0),
+               dtype)
+
+
+def test_paged_decode_kernel_refuses_large_groups(cuda):
+    q = torch.zeros(1, 32, 64, device=cuda)
+    pool = torch.zeros(4, 16, 1, 64, device=cuda)
+    tab = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        paged_decode_op(q, pool, pool, tab, lens)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Sq,P", [(512, 1024), (512, 384)])
+def test_prefix_prefill_kernel_serve_shapes(cuda, Sq, P, dtype):
+    """A 512-token chunk over a 1024- and a 384-token prefix, yi-6b heads
+    (H=32, Hkv=4, hd 128), in the model's layout."""
+    rng = np.random.default_rng(9)
+    H, Hkv, hd, page = 32, 4, 128, 16
+    npp = P // page
+    q = _t(rng, cuda, dtype, 1, Sq, H, hd)
+    k = _t(rng, cuda, dtype, 1, Sq, Hkv, hd)
+    v = _t(rng, cuda, dtype, 1, Sq, Hkv, hd)
+    kp = _t(rng, cuda, dtype, npp + 1, page, Hkv, hd)
+    vp = _t(rng, cuda, dtype, npp + 1, page, Hkv, hd)
+    table = torch.from_numpy((1 + rng.permutation(npp))[None]
+                             .astype(np.int32)).to(cuda)
+    plens = torch.tensor([P], dtype=torch.int32, device=cuda)
+    args = (q, k, v, kp, vp, table, plens)
+    before = tk.launch_counts()["prefix_prefill"]
+    got = prefix_prefill_op(*args)
+    assert tk.launch_counts()["prefix_prefill"] == before + 1
+    _close(got, prefix_prefill_op(*args, plain=True), dtype)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+def test_prefix_prefill_kernel_ragged_suffix_and_trash_slots_bf16(cuda,
+                                                                  softcap):
+    """The ragged case of the f32 test below in bf16 on the tensor-core
+    tile, at hd 128 and hd 64, with and without the soft cap."""
+    rng = np.random.default_rng(10)
+    for hd in (128, 64):
+        B, H, Hkv, Sq, page, npp = 2, 4, 2, 100, 8, 12
+        dt = torch.bfloat16
+        q = _t(rng, cuda, dt, B, H, Sq, hd)
+        k = _t(rng, cuda, dt, B, Hkv, Sq, hd)
+        v = _t(rng, cuda, dt, B, Hkv, Sq, hd)
+        kp = _t(rng, cuda, dt, 30, page, Hkv, hd)
+        vp = _t(rng, cuda, dt, 30, page, Hkv, hd)
+        kp[0], vp[0] = 50.0, -50.0
+        table = torch.arange(1, 25, dtype=torch.int32,
+                             device=cuda).reshape(2, 12)
+        table[1, 9:] = 0                     # trash past the live prefix
+        plens = torch.tensor([96, 67], dtype=torch.int32, device=cuda)
+        slens = torch.tensor([100, 71], dtype=torch.int32, device=cuda)
+        from repro_torch.kernels.prefix_prefill.kernel import prefix_prefill
+        got = prefix_prefill(q, k, v, kp, vp, table, plens, slens,
+                             softcap=softcap)
+        _close(got, prefix_prefill_ref(q, k, v, kp, vp, table, plens, slens,
+                                       softcap=softcap), dt)
+
+
+def test_prefix_prefill_kernel_refuses_misaligned_views(cuda):
+    """16-byte vector copies: a view that starts off 16 bytes, or rows that
+    are not whole 16-byte chunks apart, raise (no scalar path)."""
+    from repro_torch.kernels.prefix_prefill.kernel import prefix_prefill
+    rng = np.random.default_rng(11)
+    dt = torch.bfloat16
+    big = _t(rng, cuda, dt, 1, 2, 33, 64)
+    q = big[:, :, 1:]                        # starts 128 bytes in: fine
+    k = _t(rng, cuda, dt, 1, 1, 32, 64)
+    pool = _t(rng, cuda, dt, 4, 8, 1, 64)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    plens = torch.tensor([16], dtype=torch.int32, device=cuda)
+    prefix_prefill(q, k, k, pool, pool, table, plens)
+    wide = _t(rng, cuda, dt, 1, 2, 32, 68)[..., 2:66]   # starts 4 bytes in
+    with pytest.raises(ValueError):
+        prefix_prefill(wide, k, k, pool, pool, table, plens)
+    odd = _t(rng, cuda, dt, 1, 1, 32, 66)[..., :64]     # 132-byte rows
+    with pytest.raises(ValueError):
+        prefix_prefill(q, odd, odd, pool, pool, table, plens)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
