@@ -11,12 +11,15 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    at its main path's shapes (yi-6b for the attention kernels, mamba2-2.7b
    for `ssd_scan`), in f32 and bf16, and time kernel, plain version and,
    where one exists, a PyTorch library call that computes the same
-   function (a yardstick the port never calls). `paged_decode` and
-   `prefix_prefill` also run at the serve phase's own shapes (B=8 tables
-   of 128 pages with contexts up to 1532, B=1 at 1500; 512-token chunks
-   over 512 and 384 prefix tokens); each row prints its achieved rate
-   beside its bound, and `paged_decode` its split count and whether two
-   identical calls gave identical bits.
+   function (a yardstick the port never calls). `paged_decode`,
+   `prefix_prefill`, `flash_prefill` and `ssd_scan` also run at the serve
+   phase's own shapes (B=8 tables of 128 pages with contexts up to 1532,
+   B=1 at 1500; 512-token chunks over 512 and 384 prefix tokens;
+   from-scratch prefills of 512 and 200 tokens; a 1536-token SSD scan);
+   each row prints its achieved rate beside its bound (in f32 and bf16),
+   `paged_decode` its split count, `flash_prefill` and `ssd_scan` the
+   heads a block, and the split kernels whether two identical calls gave
+   identical bits.
 3. serve yi-6b: `DisaggCluster` at full yi-6b width (random f32 weights
    from a seed, shared by both engines) serves a trace of 8 requests, some
    sharing a system prompt, with the prefix cache and 512-token chunked
@@ -31,8 +34,9 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    projections at standard scales; see `standard_attention_scales`). The
    same comparison in f32 at the serving weights is printed for
    information. (c) For information, a `torch.profiler` trace of one
-   batch-8 decode step and one 512-token chunk over a 1024-token prefix.
-   The yi-6b weights are then freed.
+   batch-8 decode step, one 512-token prefill from scratch and one
+   512-token chunk over a 1024-token prefix. The yi-6b weights are then
+   freed.
 5. serve mamba2-2.7b: the same trace through `DisaggCluster` at full
    mamba2-2.7b width on the dense state slab (exact-length prefill, no
    prefix cache, no chunking). Every prefill layer runs `ssd_scan`; its
@@ -184,7 +188,9 @@ def sdpa(q, k, v, mask=None, causal=False):
 
 def kernel_phase(cfg, dtypes):
     import torch
-    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.flash_prefill import kernel as flash_kernel
+    from repro_torch.kernels.flash_prefill.kernel import (
+        flash_heads_per_block, flash_prefill)
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
     from repro_torch.kernels.paged_decode.kernel import (decode_split,
                                                          paged_decode,
@@ -291,6 +297,44 @@ def kernel_phase(cfg, dtypes):
                    + 2 * P * Hkv * hd * es + npp * 4 + 4),
             flops=4 * pairs * H * hd)
 
+    def flash_row(dtype, es, S):
+        """flash_prefill: an S-token causal prefill from scratch. In bf16
+        also the time with one and with two query heads a block, forced by
+        replacing `flash_heads_per_block` for the timing (the wrapper picks
+        one from the shapes)."""
+        qf = randn(1, H, S, hd, dtype=dtype)
+        kf = randn(1, Hkv, S, hd, dtype=dtype)
+        vf = randn(1, Hkv, S, hd, dtype=dtype)
+        out = flash_prefill(qf, kf, vf, causal=True)
+        again = flash_prefill(qf, kf, vf, causal=True)
+        ref = flash_prefill_ref(qf, kf, vf, causal=True)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, dn)
+        same = bool(torch.equal(out, again))
+        r = dict(
+            shape=f"S={S} causal H={H} Hkv={Hkv} hd={hd}",
+            max_abs_err=err, ok=ok and same, repeat_identical=same,
+            ms=time_ms(lambda: flash_prefill(qf, kf, vf, causal=True)),
+            plain_ms=time_ms(lambda: flash_prefill_ref(qf, kf, vf,
+                                                       causal=True),
+                             iters=5),
+            library_ms=time_ms(lambda: sdpa(qf, kf, vf, causal=True)),
+            library="scaled_dot_product_attention(is_causal=True)",
+            bytes=(2 * H * S * hd + 2 * Hkv * S * hd) * es,
+            flops=4 * (S * (S + 1) // 2) * H * hd,
+            heads_per_block=flash_heads_per_block(1, H, Hkv, S, sms))
+        if dtype == torch.bfloat16:
+            chosen = flash_kernel.flash_heads_per_block
+            try:
+                for qh in (1, 2):
+                    flash_kernel.flash_heads_per_block = \
+                        lambda *shape, qh=qh, **_: qh
+                    r[f"ms_heads_per_block_{qh}"] = time_ms(
+                        lambda: flash_prefill(qf, kf, vf, causal=True))
+            finally:
+                flash_kernel.flash_heads_per_block = chosen
+        return r
+
     results = {}
     for dtype in dtypes:
         dn = str(dtype).split(".")[-1]
@@ -347,32 +391,22 @@ def kernel_phase(cfg, dtypes):
         rows["prefix_prefill_p512"] = prefix_row(dtype, es, 512, 512)
         rows["prefix_prefill_p384"] = prefix_row(dtype, es, 512, 384)
 
-        # -- flash_prefill: S=1024, causal --------------------------------
-        S = 1024
-        qf = randn(1, H, S, hd, dtype=dtype)
-        kf = randn(1, Hkv, S, hd, dtype=dtype)
-        vf = randn(1, Hkv, S, hd, dtype=dtype)
-        out = flash_prefill(qf, kf, vf, causal=True)
-        ref = flash_prefill_ref(qf, kf, vf, causal=True)
-        torch.cuda.synchronize()
-        err, ok = max_err(out, ref, dn)
-        rows["flash_prefill"] = dict(
-            shape=f"S={S} causal H={H} Hkv={Hkv} hd={hd}",
-            max_abs_err=err, ok=ok,
-            ms=time_ms(lambda: flash_prefill(qf, kf, vf, causal=True)),
-            plain_ms=time_ms(lambda: flash_prefill_ref(qf, kf, vf,
-                                                       causal=True),
-                             iters=5),
-            library_ms=time_ms(lambda: sdpa(qf, kf, vf, causal=True)),
-            library="scaled_dot_product_attention(is_causal=True)",
-            bytes=(2 * H * S * hd + 2 * Hkv * S * hd) * es,
-            flops=4 * (S * (S + 1) // 2) * H * hd)
-
+        # -- flash_prefill: S=1024 causal, and the serve phase's first
+        #    chunks of 512 and 200 tokens -----------------------------------
+        for key, S in (("flash_prefill", 1024), ("flash_prefill_s512", 512),
+                       ("flash_prefill_s200", 200)):
+            rows[key] = flash_row(dtype, es, S)
         for name, r in rows.items():
             r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], dn)
             r["achieved"] = achieved(r)
             split = (f" n_split={r['n_split']} ({r['split_pages']} pages, "
                      f"{r['blocks']} blocks)" if "n_split" in r else "")
+            if "heads_per_block" in r:
+                split += f" heads_per_block={r['heads_per_block']}" + "".join(
+                    f" ms[{q}]={r[f'ms_heads_per_block_{q}']:.4f}"
+                    for q in (1, 2) if f"ms_heads_per_block_{q}" in r)
+            if "repeat_identical" in r:
+                split += f" repeat_identical={r['repeat_identical']}"
             log(f"kernel {name:21s} {dn:8s} {r['shape']}: "
                 f"max_abs_err={r['max_abs_err']:.3e} "
                 f"{'ok' if r['ok'] else 'MISMATCH'} "
@@ -404,12 +438,13 @@ def ssd_flops_bytes(b, S, nh, hd, G, N, Q, es):
 
 def ssd_kernel_phase(cfg, dtypes):
     """`ssd_scan` at the mamba2-2.7b main path's shapes: a 2048-token
-    prefill (8 chunks of 256) and a 200-token prompt (one ragged chunk of
-    200). Inputs have the distributions of the JAX sweep
+    prefill (8 chunks of 256), the traced 1536-token prefill (6 chunks)
+    and a 200-token prompt (one ragged chunk of 200); two identical calls
+    must give identical bits. Inputs have the distributions of the JAX sweep
     (tests/test_kernels.py::test_ssd_scan_sweep). No single PyTorch call
     computes an SSD scan, so there is no library yardstick."""
     import torch
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import ssd_plan, ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     s = cfg.ssm
@@ -417,6 +452,7 @@ def ssd_kernel_phase(cfg, dtypes):
     G, N = s.ngroups, s.state_dim
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(4321)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -427,6 +463,7 @@ def ssd_kernel_phase(cfg, dtypes):
         es = torch.empty((), dtype=dtype).element_size()
         rows = {}
         for key, S, Q in (("ssd_scan", 2048, 256),
+                          ("ssd_scan_s1536", 1536, 256),
                           ("ssd_scan_ragged", 200, 200)):
             x = randn(1, S, nh, hd).to(dtype)
             dt = torch.nn.functional.softplus(randn(1, S, nh)) * 0.1
@@ -435,15 +472,20 @@ def ssd_kernel_phase(cfg, dtypes):
             C = randn(1, S, G, N).to(dtype)
             D = randn(nh)
             y, h = ssd_scan(x, dt, A, B, C, D, chunk=Q)
+            y2, h2 = ssd_scan(x, dt, A, B, C, D, chunk=Q)
             ry, rh = ssd_scan_ref(x, dt, A, B, C, D, chunk=Q)
             torch.cuda.synchronize()
             err_y, ok_y = max_err(y, ry, dn, SSD_TOL)
             err_h, ok_h = max_err(h, rh, "float32", SSD_TOL)
+            same = bool(torch.equal(y, y2) and torch.equal(h, h2))
             flops, nbytes = ssd_flops_bytes(1, S, nh, hd, G, N, Q, es)
             rows[key] = dict(
                 shape=f"b=1 S={S} chunk={Q} nh={nh} hd={hd} G={G} N={N}",
                 max_abs_err=max(err_y, err_h), max_abs_err_y=err_y,
-                max_abs_err_h=err_h, ok=ok_y and ok_h,
+                max_abs_err_h=err_h, ok=ok_y and ok_h and same,
+                repeat_identical=same,
+                heads_per_block=ssd_plan(1, S, nh, hd, G, N, Q, sms)
+                .heads_per_block,
                 ms=time_ms(lambda: ssd_scan(x, dt, A, B, C, D, chunk=Q)),
                 plain_ms=time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, D,
                                                       chunk=Q), iters=5),
@@ -456,7 +498,9 @@ def ssd_kernel_phase(cfg, dtypes):
                 f"{'ok' if r['ok'] else 'MISMATCH'} "
                 f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                 f"library_ms=none bound_ms={r['bound_ms']:.4f} "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}) achieved={achieved(r)} "
+                f"heads_per_block={r['heads_per_block']} "
+                f"repeat_identical={r['repeat_identical']}")
         results[dn] = rows
         bad = [n for n, r in rows.items() if not r["ok"]]
         if bad:
@@ -808,8 +852,10 @@ def mamba_profile(cfg, params):
 def yi_profile(cfg, params):
     """Where a yi-6b step's time goes, f32: one decode step at batch 8 over
     the serve trace's prompt lengths (paged_insert + paged_decode in every
-    layer), and one 512-token chunk over a 1024-token prefix
-    (prefix_prefill in every layer), on an Engine's paged cache."""
+    layer), one 512-token prefill from scratch (flash_prefill in every
+    layer, the serve phase's first chunk) and one 512-token chunk over a
+    1024-token prefix (prefix_prefill in every layer), on an Engine's
+    paged cache."""
     import torch
     from repro_torch.serving.engine import Engine
     eng = Engine(cfg, params, max_batch=8, max_len=2048)   # shares params
@@ -831,6 +877,9 @@ def yi_profile(cfg, params):
         "decode_b8": device_profile(
             lambda: eng.model.decode_step_paged(eng.params, cache, step),
             f"{cfg.name} decode step, batch 8, contexts 200..1500"),
+        "prefill_512": device_profile(
+            lambda: eng.model.forward(eng.params, chunk, return_cache=True),
+            f"{cfg.name} 512-token prefill from scratch"),
         "chunk_512_over_1024": device_profile(
             lambda: eng.model.forward(
                 eng.params, chunk, return_cache=True, prefix_pages=pools,

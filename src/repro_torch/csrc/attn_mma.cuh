@@ -1,8 +1,9 @@
 // Tile code of the redesigned attention kernels for Hopper (sm_90a):
 // asynchronous 16-byte tile copies (cp.async) into a two-stage ring, and
 // the FlashAttention-2 bf16 tile on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 accumulate). prefix_prefill runs on it; it is written so
-// that flash_prefill can move onto it.
+// bf16 in, f32 accumulate). prefix_prefill runs on it; its online softmax
+// and row store also serve flash_prefill's wgmma tile (attn_wgmma.cuh),
+// whose accumulators have the same per-warp layout.
 //
 // The bf16 tile: 4 warps own a 64-row Q tile, each warp 16 rows. The
 // warp's Q fragments are loaded once (ldmatrix) and stay in
@@ -221,6 +222,96 @@ struct MmaState {
   }
 };
 
+// The online-softmax step of a warp's 16 rows on an 8 x 4 fragment tile
+// of scores (8 n-tiles of 8 keys, the mma.sync / wgmma accumulator
+// layout: element e of n-tile j is row lane/4 + 8 (e/2), column 8 j +
+// 2 (lane%4) + e%2). Turns the scores sin into P (f32) in s (which may
+// be sin itself), folds it into the running
+// max m and this thread's part of the sum l, and returns in corr the
+// factor by which the output accumulators must be rescaled (by
+// rescale_rows, which the wgmma tile defers until its previous product
+// has landed). `visible(r, c)`: the mask of warp-local row r and tile
+// column c, not evaluated when `full`.
+template <typename MaskFn>
+__device__ __forceinline__ void softmax_scores(const float (&sin)[8][4],
+                                               float (&s)[8][4],
+                                               float (&corr)[2],
+                                               float (&m)[2], float (&l)[2],
+                                               float scale, float softcap,
+                                               bool full, MaskFn visible) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  // Without a soft cap the row max is taken over the raw scores q.k and
+  // p = 2^(s c - m c) with c = scale * log2(e): one FFMA and one ex2 a
+  // score, the same function as exp(scale s - max(scale s)) since scale >
+  // 0. With a cap, over the capped scores and c = log2(e). A row with no
+  // visible score yet (m = NEG_INF) takes exp(NEG_INF - NEG_INF) = 1 for
+  // each masked score, as the TPU kernel does.
+  const bool cap = softcap > 0.f;
+  const float c = (cap ? 1.f : scale) * 1.4426950408889634f;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = cap ? score_post(sin[j][e], scale, softcap) : sin[j][e];
+      if (!full && !visible(g + (e / 2) * 8, 8 * j + 2 * t4 + (e % 2)))
+        v = NEG_INF;
+      s[j][e] = v;
+      mx[e / 2] = fmaxf(mx[e / 2], v);
+    }
+  float mc[2], rs[2] = {0.f, 0.f};
+  bool none[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = ex2((m[i] - m_new) * c);
+    m[i] = m_new;
+    mc[i] = m_new * c;
+    none[i] = m_new == NEG_INF;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p =
+          none[e / 2] ? 1.f : ex2(fmaf(s[j][e], c, -mc[e / 2]));
+      s[j][e] = p;
+      rs[e / 2] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+}
+
+// o *= corr by rows (lane/4 and lane/4 + 8); once the row maxima settle,
+// corr is 1 and the rescale is skipped.
+template <int NO>
+__device__ __forceinline__ void rescale_rows(float (&o)[NO][4],
+                                             const float (&corr)[2]) {
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+  }
+}
+
+// Both: the step of mma_attend, which owns its accumulators throughout.
+template <int NO, typename MaskFn>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4],
+                                               float (&o)[NO][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float scale, float softcap,
+                                               bool full, MaskFn visible) {
+  float corr[2];
+  softmax_scores(s, s, corr, m, l, scale, softcap, full, visible);
+  rescale_rows(o, corr);
+}
+
 // One online-softmax step of a warp's 16 rows over a 64-row K/V tile in
 // shared memory. `visible(r, c)`: the mask of warp-local query row r
 // (0..15) and tile column c (0..63), not evaluated when `full` says every
@@ -234,7 +325,7 @@ __device__ __forceinline__ void mma_attend(MmaState<HD>& st,
                                            bool full, MaskFn visible) {
   constexpr int S = MmaSmem<HD>::STRIDE;
   constexpr int KSTEPS = HD / 16;
-  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int lane = threadIdx.x % 32;
 
   // S = Q K^T: 8 n-tiles of 8 keys, the 8 independent accumulators
   // innermost; one ldmatrix.x4 covers two k-steps
@@ -264,58 +355,7 @@ __device__ __forceinline__ void mma_attend(MmaState<HD>& st,
     }
   }
 
-  // Without a soft cap the row max is taken over the raw scores q.k and
-  // p = 2^(s c - m c) with c = scale * log2(e): one FFMA and one ex2 a
-  // score, the same function as exp(scale s - max(scale s)) since scale >
-  // 0. With a cap, over the capped scores and c = log2(e). A row with no
-  // visible score yet (m = NEG_INF) takes exp(NEG_INF - NEG_INF) = 1 for
-  // each masked score, as the TPU kernel does.
-  const bool cap = softcap > 0.f;
-  const float c = (cap ? 1.f : scale) * 1.4426950408889634f;
-  float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float v = cap ? score_post(s[j][e], scale, softcap) : s[j][e];
-      if (!full && !visible(g + (e / 2) * 8, 8 * j + 2 * t4 + (e % 2)))
-        v = NEG_INF;
-      s[j][e] = v;
-      mx[e / 2] = fmaxf(mx[e / 2], v);
-    }
-  float corr[2], mc[2], rs[2] = {0.f, 0.f};
-  bool none[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(st.m[i], mx[i]);
-    corr[i] = ex2((st.m[i] - m_new) * c);
-    st.m[i] = m_new;
-    mc[i] = m_new * c;
-    none[i] = m_new == NEG_INF;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p =
-          none[e / 2] ? 1.f : ex2(fmaf(s[j][e], c, -mc[e / 2]));
-      s[j][e] = p;
-      rs[e / 2] += p;
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) st.l[i] = st.l[i] * corr[i] + rs[i];
-  // once the row maxima settle, corr is 1 and the rescale is skipped
-  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      st.o[n][0] *= corr[0];
-      st.o[n][1] *= corr[0];
-      st.o[n][2] *= corr[1];
-      st.o[n][3] *= corr[1];
-    }
-  }
+  online_softmax(s, st.o, st.m, st.l, scale, softcap, full, visible);
 
   // O += P V: P's accumulator fragments are the A-fragments of P.V
 #pragma unroll
@@ -336,15 +376,17 @@ __device__ __forceinline__ void mma_attend(MmaState<HD>& st,
   }
 }
 
-// Write a warp's finished rows: o / max(l, 1e-37) as bf16, warp-local rows
-// r < n_valid only. `row(r)` returns the output row's first element.
+// Write a warp's finished rows from the accumulator layout: o / max(l,
+// 1e-37) as bf16, warp-local rows r < n_valid only; l is each thread's
+// part of its rows' sums. `row(r)` returns the output row's first element.
 template <int HD, typename RowFn>
-__device__ __forceinline__ void mma_store(const MmaState<HD>& st,
-                                          int n_valid, RowFn row) {
+__device__ __forceinline__ void store_rows_bf16(const float (&o)[HD / 8][4],
+                                                const float (&l2)[2],
+                                                int n_valid, RowFn row) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float l = st.l[i];                 // the quad's parts of the row sum
+    float l = l2[i];                   // the quad's parts of the row sum
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int r = g + 8 * i;
@@ -353,11 +395,17 @@ __device__ __forceinline__ void mma_store(const MmaState<HD>& st,
     const float den = fmaxf(l, DEN_MIN);
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(st.o[n][2 * i] / den,
-                                               st.o[n][2 * i + 1] / den);
+      __nv_bfloat162 v = __floats2bfloat162_rn(o[n][2 * i] / den,
+                                               o[n][2 * i + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t4) = v;
     }
   }
+}
+
+template <int HD, typename RowFn>
+__device__ __forceinline__ void mma_store(const MmaState<HD>& st,
+                                          int n_valid, RowFn row) {
+  store_rows_bf16<HD>(st.o, st.l, n_valid, row);
 }
 
 }  // namespace attn

@@ -2,123 +2,461 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_prefill/kernel.py
 // (flash_prefill, _kernel): causal or not, GQA through the kv head index,
-// sliding window, soft cap, and the offset mask kpos <= (Skv - Sq) + qpos
-// when Sq < Skv.
+// sliding window, soft cap, the offset mask kpos <= (Skv - Sq) + qpos when
+// Sq < Skv, the finite NEG_INF mask (a row with no visible score yet takes
+// exp(0) per masked score, cancelled by corr later) and the 1e-37 clamp.
 //
-// Bound on the H100: at the main path's shapes (yi-6b, S = 1024, hd 128)
-// the work is ~4*S*S/2*hd*H flops against ~4*S*H*hd*4 bytes, far above the
-// card's ridge, so it is bound by operations. This first kernel runs the
-// two products on the f32 CUDA cores (67 TF/s peak), not the tensor cores:
-// it keeps one 64-row Q tile resident in shared memory, streams 64-row K/V
-// tiles past it, register-blocks a 4 x 4 score tile and a 4 x (hd/16)
-// output tile per thread, and skips kv tiles that lie wholly above the
-// causal diagonal or wholly before the window. Tensor cores (mma/wgmma on
-// bf16 tiles) and TMA loads are later work.
+// Bound on the H100: at the main path's shapes (yi-6b, S = 512..1024, hd
+// 128, 32 query heads over 4 kv heads) the causal products are ~4 S^2/2
+// hd H flops against ~4 S H hd bytes, far above the card's ridge, so it
+// is bound by operations: 989 TF/s in bf16 on the tensor cores, 67 TF/s in
+// f32 on the CUDA cores.
 //
-// The TPU grid's sequential kv axis becomes a loop inside the block; the
-// (m, l, acc) state that Pallas kept in VMEM scratch lives in registers.
-// Any layout is taken through strides (last dim contiguous), so the
-// model's (B, S, H, hd) tensors are read without a transpose.
-#include "attn_common.cuh"
+// Both kernels launch the q tiles heaviest first (grid.y counts q tiles
+// from the last, which sees the most kv tiles under the causal mask), so
+// the last wave is short rows, and skip kv tiles wholly above the
+// diagonal or wholly before the window. Masks are evaluated only on the
+// tiles that straddle an edge.
+//
+// bf16: FlashAttention-3 style on wgmma and TMA (attn_wgmma.cuh). K and V
+// are dense strided tensors, so one 4-D tensor map (head dim, seq, head,
+// batch) each describes them in the caller's strides; a box never crosses
+// into another head or batch, and rows past Skv arrive zero-filled. A
+// producer warpgroup (one thread) keeps K/V tiles in flight in a
+// three-stage ring with full/empty mbarriers; each consumer warpgroup owns
+// 64 query rows (wgmma's M) of one query head. Where H / Hkv is even and
+// the grid still fills the card, two consumer warpgroups serve two query
+// heads of one kv head, so every K/V tile copied feeds 128 rows (the host
+// decides from shapes alone, kernels/flash_prefill/kernel.py). S = Q K^T
+// is wgmma with Q and K from shared memory (K-major); the online softmax
+// runs on the accumulator registers (attn_mma.cuh's softmax_scores); P is
+// converted in registers to bf16 A-fragments and O += P V takes V from
+// shared memory through the transpose bit of the B descriptor. The
+// products are pipelined within a warpgroup: S of tile t + 1 is issued
+// before P V of tile t, and the softmax of tile t + 1 runs while P V of
+// tile t is still on the tensor cores (the output rescale waits for it).
+// P is
+// rounded to bf16 before P.V, as SDPA does; the TPU kernel multiplies in
+// f32 (kernel.py:65-67): about 2^-9 of |o| more error, inside the 3e-2
+// bf16 tolerance.
+//
+// f32 stays on the CUDA cores in full f32 (TF32 would break the 5e-5
+// tolerance and the f32 card-vs-CPU token identity): attn_simt.cuh's 8 x 4
+// score and 8 x hd/16 output register tiles read as float4s, fed by a
+// two-stage ring of 16-byte cp.async copies.
+#include <type_traits>
+
+#include "attn_simt.cuh"
+#include "attn_wgmma.cuh"
 
 using namespace attn;
+using bf16 = __nv_bfloat16;
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) flash_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o,
-    long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss,
-    long long osb, long long osh, long long oss,
-    int H, int Hkv, int Sq, int Skv, int causal, int window, float scale,
-    float softcap) {
-  using L = Smem<HD>;
-  extern __shared__ float smem[];
-  float* Qs = smem + L::Q_OFF;
-  float* Ks = smem + L::K_OFF;
-  float* Vs = smem + L::V_OFF;
-  float* Ps = smem + L::P_OFF;
+namespace {
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / Hkv);
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + kh * ksh;
-  const T* vb = v + b * vsb + kh * vsh;
-  T* ob = o + b * osb + h * osh;
+constexpr int RING = 3;   // K/V stages of the bf16 kernel
 
-  load_rows<HD, T>(Qs, L::QS, BQ, [&](int r) -> const T* {
-    return q0 + r < Sq ? qb + (long long)(q0 + r) * qss : nullptr;
-  });
+struct FlashArgs {
+  const void *q, *k, *v;
+  void* o;
+  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
+  int H, Hkv, Sq, Skv, causal, window, nq;
+  float scale, softcap;
+};
 
-  TileState<HD> st;
-  st.init();
-  const int off = Skv - Sq;                       // offset of query row 0
-  const int q_hi = min(q0 + BQ, Sq) - 1;          // last real row
-  int kv_end = Skv;
-  if (causal) kv_end = min(Skv, off + q_hi + 1);  // tiles above: skipped
-  int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, off + q0 - window + 1);
-  kv_begin = (kv_begin / BKV) * BKV;
+// The kv walk of one 64-row q tile: tiles kv_begin + 64 t for t < nt.
+struct FlashWalk {
+  int q0, off, kv_begin, nt;
 
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
-    load_rows<HD, T>(Ks, L::KS, BKV, [&](int r) -> const T* {
-      return k0 + r < Skv ? kb + (long long)(k0 + r) * kss : nullptr;
-    });
-    load_rows<HD, T>(Vs, L::VS, BKV, [&](int r) -> const T* {
-      return k0 + r < Skv ? vb + (long long)(k0 + r) * vss : nullptr;
-    });
-    __syncthreads();
-    attend_tile<HD>(st, Qs, Ks, Vs, Ps, scale, softcap, [&](int r, int c) {
-      const int qp = off + q0 + r, kp = k0 + c;
-      bool ok = kp < Skv;
-      if (causal) ok = ok && kp <= qp;
-      if (window > 0) ok = ok && kp > qp - window;
-      return ok;
+  __device__ FlashWalk(const FlashArgs& a, int qtile) {
+    q0 = qtile * 64;
+    off = a.Skv - a.Sq;                              // offset of query row 0
+    const int q_hi = min(q0 + 64, a.Sq) - 1;         // last real row
+    int kv_end = a.Skv;
+    if (a.causal) kv_end = min(a.Skv, off + q_hi + 1);   // above: skipped
+    int kb = 0;
+    if (a.window > 0) kb = max(0, off + q0 - a.window + 1);
+    kv_begin = (kb / 64) * 64;
+    nt = kv_end > kv_begin ? (kv_end - kv_begin + 63) / 64 : 0;
+  }
+
+  // Whether every pair of tile t is visible to tile rows r0 .. r0+rows-1.
+  __device__ __forceinline__ bool full(const FlashArgs& a, int t, int r0,
+                                       int rows) const {
+    const int k0 = kv_begin + 64 * t;
+    const int qlo = off + q0 + r0, qhi = qlo + rows - 1;
+    bool f = k0 + 64 <= a.Skv;
+    if (a.causal) f = f && k0 + 63 <= qlo;
+    if (a.window > 0) f = f && k0 > qhi - a.window;
+    return f;
+  }
+
+  // The mask of tile row r (from q0) and column c of tile t.
+  __device__ __forceinline__ bool visible(const FlashArgs& a, int t, int r,
+                                          int c) const {
+    const int kp = kv_begin + 64 * t + c, qp = off + q0 + r;
+    bool ok = kp < a.Skv;
+    if (a.causal) ok = ok && kp <= qp;
+    if (a.window > 0) ok = ok && kp > qp - a.window;
+    return ok;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, QH consumer warpgroups and one producer warpgroup.
+// ---------------------------------------------------------------------------
+template <int HD, int QH>
+__global__ void __launch_bounds__(128 * (QH + 1), 1)
+    flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const FlashArgs a) {
+  using W = WgBox<HD>;
+  constexpr int TE = W::TILE / 2;        // elements of a tile
+  constexpr int BE = W::BYTES / 2;       // elements of a box
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  // every box on 1024 bytes, the period of the 128-byte swizzle
+  unsigned char* base =
+      smem_wg + ((1024 - (smem_u32(smem_wg) & 1023)) & 1023);
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  bf16* Ks = Qs + QH * TE;
+  bf16* Vs = Ks + RING * TE;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(Vs + RING * TE);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + RING;
+  uint64_t* empty = vfull + RING;
+
+  const int per = a.H / QH;
+  const int b = blockIdx.x / per, h0 = (blockIdx.x % per) * QH;
+  const int kh = h0 / (a.H / a.Hkv);
+  const FlashWalk w(a, a.nq - 1 - blockIdx.y);     // heaviest tiles first
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 128 * QH);      // every consumer thread arrives
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 4 * QH) {
+    // producer: one thread issues every copy; the others have nothing to do
+    if (threadIdx.x == 128 * QH) {
+      mbar_expect_tx(qfull, QH * W::TILE);
+      for (int i = 0; i < QH; ++i)
+        for (int j = 0; j < W::NBOX; ++j)
+          tma_load4(Qs + i * TE + j * BE, &tq, qfull, j * W::COLS, w.q0,
+                    h0 + i, b);
+      for (int t = 0; t < w.nt; ++t) {
+        const int s = t % RING;
+        mbar_wait(&empty[s], ((t / RING) & 1) ^ 1);   // round 0 passes
+        const int k0 = w.kv_begin + 64 * t;
+        mbar_expect_tx(&kfull[s], W::TILE);
+        for (int j = 0; j < W::NBOX; ++j)
+          tma_load4(Ks + s * TE + j * BE, &tk, &kfull[s], j * W::COLS, k0,
+                    kh, b);
+        mbar_expect_tx(&vfull[s], W::TILE);
+        for (int j = 0; j < W::NBOX; ++j)
+          tma_load4(Vs + s * TE + j * BE, &tv, &vfull[s], j * W::COLS, k0,
+                    kh, b);
+      }
+    }
+  } else {
+    const int hq = warp / 4;               // the warpgroup's query head
+    const int wr0 = (warp % 4) * 16;       // the warp's first tile row
+    float o[HD / 8][4];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    const uint32_t qt = smem_u32(Qs + hq * TE);
+    // Software pipeline, per kv tile t: the softmax of tile t runs while
+    // P V of tile t - 1 is still on the tensor cores, and S = Q K^T of tile
+    // t + 1 is issued ahead of P V of tile t. Between a product's issue
+    // and its wait no other instruction touches its accumulators, and no
+    // product is issued in a data-dependent branch (the last tile is a
+    // separate instance of the step), or ptxas serialises the products.
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    auto wgmma_s = [&](int t) {            // S of tile t into sc
+      const uint32_t kt = smem_u32(Ks + (t % RING) * TE);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(sc, desc_kmajor<HD>(qt, kk), desc_kmajor<HD>(kt, kk),
+                     kk > 0);
+      wg_commit();
+    };
+    // the landed scores, copied out of the accumulators: from here on only
+    // the next S product touches sc
+    auto take_s = [&](float (&p)[8][4]) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          asm volatile("mov.b32 %0, %1;\n" : "=f"(p[j][e]) : "f"(sc[j][e]));
+    };
+    float ps[8][4];                        // S, then P, of the current tile
+    // With two consumer warpgroups, they take turns to issue their
+    // products (named barriers 1 and 2; FlashAttention-3's ping-pong), so
+    // the softmax of one runs under the products of the other: fed by the
+    // same tiles, they would otherwise run in step and leave the tensor
+    // cores idle during both softmaxes.
+    auto my_turn = [&]() {
+      if constexpr (QH == 2) bar_sync(1 + hq, 256);
+    };
+    auto your_turn = [&]() {
+      if constexpr (QH == 2) bar_arrive(2 - hq, 256);
+    };
+    if constexpr (QH == 2)
+      if (hq == 1) bar_arrive(1, 256);     // warpgroup 0 goes first
+    auto step = [&](int t, auto more) {
+      constexpr bool MORE = decltype(more)::value;
+      float corr[2];
+      softmax_scores(ps, ps, corr, m, l, a.scale, a.softcap,
+                     w.full(a, t, wr0, 16), [&](int r, int c) {
+                       return w.visible(a, t, wr0 + r, c);
+                     });
+      wg_wait<0>();                        // P V of tile t - 1 has landed
+      fence_regs(o);
+      if (t > 0) mbar_arrive(&empty[(t - 1) % RING]);
+      // unconditional (rescale_rows skips corr = 1 behind a branch): no
+      // accumulator is written in a data-dependent branch
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) {
+        pa[k2][0] = pack_bf16(ps[2 * k2][0], ps[2 * k2][1]);
+        pa[k2][1] = pack_bf16(ps[2 * k2][2], ps[2 * k2][3]);
+        pa[k2][2] = pack_bf16(ps[2 * k2 + 1][0], ps[2 * k2 + 1][1]);
+        pa[k2][3] = pack_bf16(ps[2 * k2 + 1][2], ps[2 * k2 + 1][3]);
+      }
+      fence_regs(o);
+      if constexpr (MORE)
+        mbar_wait(&kfull[(t + 1) % RING], ((t + 1) / RING) & 1);
+      mbar_wait(&vfull[t % RING], (t / RING) & 1);
+      const uint32_t vt = smem_u32(Vs + (t % RING) * TE);
+      my_turn();
+      wg_fence();
+      if constexpr (MORE) wgmma_s(t + 1);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2)
+        wgmma_rs<HD>(o, pa[k2], desc_mnmajor<HD>(vt, k2));
+      wg_commit();
+      your_turn();
+      if constexpr (MORE) {
+        wg_wait<1>();                      // S of tile t + 1 has landed
+        take_s(ps);
+      }
+    };
+    mbar_wait(qfull, 0);
+    if (w.nt > 0) {
+      mbar_wait(&kfull[0], 0);
+      fence_regs(sc);
+      my_turn();
+      wg_fence();
+      wgmma_s(0);
+      your_turn();
+      wg_wait<0>();
+      take_s(ps);
+      for (int t = 0; t + 1 < w.nt; ++t) step(t, std::true_type());
+      step(w.nt - 1, std::false_type());
+      wg_wait<0>();             // inside the branch: no product in flight
+      fence_regs(o);            // where the paths join
+    }
+    bf16* ob = static_cast<bf16*>(a.o) + b * a.osb + (h0 + hq) * a.osh;
+    store_rows_bf16<HD>(o, l, a.Sq - w.q0 - wr0, [&](int r) {
+      return ob + (long long)(w.q0 + wr0 + r) * a.oss;
     });
   }
-  store_tile<HD, T>(st, Sq - q0, [&](int r) -> T* {
-    return ob + (long long)(q0 + r) * oss;
+}
+
+// ---------------------------------------------------------------------------
+// f32: register tiles on the CUDA cores, one (batch, head) a block.
+// ---------------------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(SIMT_NT)
+    flash_prefill_simt_kernel(const FlashArgs a) {
+  using L = SimtSmem<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* Qs = sm + L::Q_OFF;
+  float* Ks = sm + L::K_OFF;
+  float* Vs = sm + L::V_OFF;
+  float* Ps = sm + L::P_OFF;
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int kh = h / (a.H / a.Hkv);
+  const FlashWalk w(a, a.nq - 1 - blockIdx.y);     // heaviest tiles first
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ksb + kh * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vsb + kh * a.vsh;
+  float* ob = static_cast<float*>(a.o) + b * a.osb + h * a.osh;
+
+  // the Q tile, rows past Sq zero-filled
+  constexpr int CPR = HD / 4;
+  const int c = (threadIdx.x % CPR) * 4;
+  for (int r = threadIdx.x / CPR; r < 64; r += SIMT_NT / CPR) {
+    float* dst = Qs + r * L::QS + c;
+    if (w.q0 + r < a.Sq)
+      cp_async16(dst, qb + (long long)(w.q0 + r) * a.qss + c);
+    else
+      zero16(dst);
+  }
+  auto issue = [&](int t) {
+    const int k0 = w.kv_begin + 64 * t, stg = t & 1;
+    copy_kv_rows<float, HD, SIMT_BKV, SIMT_NT>(
+        Ks + stg * SIMT_BKV * L::KS, Vs + stg * SIMT_BKV * L::VS, L::KS,
+        L::VS, kb, vb, [&](int r) {
+          const long long pos = k0 + r;
+          if (pos >= a.Skv) return RowSrc{0, 0, false};
+          return RowSrc{pos * a.kss, pos * a.vss, true};
+        });
+  };
+  if (w.nt > 0) issue(0);
+  cp_async_commit();                       // Q joins tile 0
+  SimtState<HD> st;
+  st.init();
+  for (int t = 0; t < w.nt; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();       // tile t landed; tile t - 1's buffers are free
+    if (t + 1 < w.nt) issue(t + 1);
+    cp_async_commit();
+    simt_attend<HD>(st, Qs, Ks + (t & 1) * SIMT_BKV * L::KS,
+                    Vs + (t & 1) * SIMT_BKV * L::VS, Ps, a.scale, a.softcap,
+                    w.full(a, t, 0, 64),
+                    [&](int r, int cc) { return w.visible(a, t, r, cc); });
+  }
+  cp_async_wait<0>();
+  simt_store<HD>(st, a.Sq - w.q0, [&](int r) {
+    return ob + (long long)(w.q0 + r) * a.oss;
   });
 }
 
-template <typename T, int HD>
-static cudaError_t launch(const void* q, const void* k, const void* v,
-                          void* o, const long long* st, int B, int H,
-                          int Hkv, int Sq, int Skv, int causal, int window,
-                          float scale, float softcap, cudaStream_t stream) {
-  auto kern = flash_prefill_kernel<T, HD>;
-  const size_t bytes = Smem<HD>::BYTES;
-  cudaError_t err = allow_smem(kern, bytes);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: fetched once through the
+// runtime, so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (head dim, seq, head, batch) of a bf16 (B, heads, S, HD) view
+// with element strides (sb, sh, ss), in boxes of (COLS, 64, 1, 1).
+template <int HD>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int S, int heads,
+                     int B, long long sb, long long sh, long long ss) {
+  using W = WgBox<HD>;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)W::COLS, 64, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = W::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : W::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD, int QH>
+cudaError_t launch_wgmma(const FlashArgs& a, int B, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map<HD>(&tq, a.q, a.Sq, a.H, B, a.qsb, a.qsh, a.qss);
+  if (err == cudaSuccess)
+    err = make_map<HD>(&tk, a.k, a.Skv, a.Hkv, B, a.ksb, a.ksh, a.kss);
+  if (err == cudaSuccess)
+    err = make_map<HD>(&tv, a.v, a.Skv, a.Hkv, B, a.vsb, a.vsh, a.vss);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], H,
-      Hkv, Sq, Skv, causal, window, scale, softcap);
+  auto kern = flash_prefill_wgmma_kernel<HD, QH>;
+  const size_t bytes = (size_t)(QH + 2 * RING) * WgBox<HD>::TILE + 1024 +
+                       (1 + 3 * RING) * sizeof(uint64_t);
+  err = allow_smem(kern, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * a.H / QH, a.nq);
+  kern<<<grid, 128 * (QH + 1), bytes, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
+  auto kern = flash_prefill_simt_kernel<HD>;
+  const size_t bytes = SimtSmem<HD>::BYTES;
+  cudaError_t err = allow_smem(kern, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * a.H, a.nq);
+  kern<<<grid, SIMT_NT, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (batch,
-// head, seq) for each of q, k, v, o. Returns a cudaError_t code.
+// head, seq) for each of q, k, v, o; every tensor starts on 16 bytes and
+// every stride is a whole number of 16-byte chunks (the wrapper checks).
+// qh: query heads a block of the bf16 kernel (1, or 2 where H / Hkv is
+// even). Returns a cudaError_t code.
 extern "C" int flash_prefill(int dtype, int hd, const void* q, const void* k,
-                             const void* v, void* o, const long long* strides,
+                             const void* v, void* o, const long long* st,
                              int B, int H, int Hkv, int Sq, int Skv,
                              int causal, int window, float scale,
-                             float softcap, void* stream) {
+                             float softcap, int qh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  const FlashArgs a{q,      k,      v,      o,      st[0],  st[1],
+                    st[2],  st[3],  st[4],  st[5],  st[6],  st[7],
+                    st[8],  st[9],  st[10], st[11], H,      Hkv,
+                    Sq,     Skv,    causal, window, (Sq + 63) / 64,
+                    scale,  softcap};
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    ATTN_DISPATCH_HD(hd, HD, err = launch<float, HD>(
-        q, k, v, o, strides, B, H, Hkv, Sq, Skv, causal, window, scale,
-        softcap, s));
-  } else if (dtype == 1) {
-    ATTN_DISPATCH_HD(hd, HD, err = launch<__nv_bfloat16, HD>(
-        q, k, v, o, strides, B, H, Hkv, Sq, Skv, causal, window, scale,
-        softcap, s));
+    ATTN_DISPATCH_HD(hd, HD, err = launch_simt<HD>(a, B, s));
+  } else if (dtype == 1 && qh == 2 && (H / Hkv) % 2 == 0) {
+    ATTN_DISPATCH_HD(hd, HD, err = (launch_wgmma<HD, 2>(a, B, s)));
+  } else if (dtype == 1 && qh == 1) {
+    ATTN_DISPATCH_HD(hd, HD, err = (launch_wgmma<HD, 1>(a, B, s)));
   }
   return static_cast<int>(err);
 }

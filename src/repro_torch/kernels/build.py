@@ -32,14 +32,14 @@ _F = ctypes.c_float
 # ctypes never truncates them to 32 bits
 SIGNATURES = {
     "flash_prefill": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _F, _F, _P],
+                      _I, _F, _F, _I, _P],
     "prefix_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _I, _F, _F, _P],
     "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _F, _F, _P],
     "paged_insert": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                 _I, _I, _P],
+    "ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                 _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -168,10 +168,15 @@ def require_aligned(name: str, *tensors: torch.Tensor):
 
 
 def bhs_strides(*tensors):
-    """(batch, head, seq) element strides of each (B, heads, S, hd) view."""
+    """(batch, head, seq) element strides of each (B, heads, S, hd) view.
+
+    The stride of a dim of size 1, never stepped over, is given as hd: a
+    TMA tensor map wants every stride in 16-byte units, and PyTorch leaves
+    such strides free."""
     out = []
     for t in tensors:
         if t.stride(3) != 1:
             raise ValueError("the head dim must be contiguous")
-        out += [t.stride(0), t.stride(1), t.stride(2)]
+        out += [t.shape[3] if t.shape[i] == 1 else t.stride(i)
+                for i in range(3)]
     return (ctypes.c_longlong * len(out))(*out)

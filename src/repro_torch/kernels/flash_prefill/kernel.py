@@ -1,18 +1,44 @@
-"""Launch wrapper of the CUDA kernel in `csrc/flash_prefill.cu`.
+"""Launch wrapper of the CUDA kernels in `csrc/flash_prefill.cu`.
 
 Takes the kernel layout of the JAX function, q (B, H, Sq, hd) and k/v
 (B, Hkv, Skv, hd), in any strides with a contiguous last dim, so the
-model's (B, S, H, hd) tensors come in as transposed views. CUDA tensors
-only; each launch adds one to `flash_prefill.launches`.
+model's (B, S, H, hd) tensors come in as transposed views. Every tensor
+must start on 16 bytes with strides in 16-byte units: the f32 kernel
+copies 16-byte chunks, the bf16 kernel reads through TMA tensor maps.
+CUDA tensors only; each launch adds one to `flash_prefill.launches`.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..build import (DTYPE_CODES, HEAD_DIMS, bhs_strides, check, library,
-                     require_cuda, stream_of)
+                     require_aligned, require_cuda, stream_of)
+
+BQ = 64                 # query rows a consumer warpgroup (and a f32 block)
+
+
+def flash_heads_per_block(B: int, H: int, Hkv: int, Sq: int,
+                          sm_count: int = 132) -> int:
+    """Query heads a block of the bf16 kernel serves, from shapes alone.
+
+    Two query heads of one kv head (two consumer warpgroups that take
+    turns on the tensor cores) halve the K/V bytes copied per product, but
+    halve the blocks; they are taken where H / Hkv is even and the grid
+    still has a block for at least 3/4 of the SMs. On an H100, yi-6b at
+    S = 512 (128 blocks for 132 SMs) runs faster with two, at S = 200 (64
+    blocks) with one."""
+    blocks = B * (H // 2) * -(-Sq // BQ)
+    if (H // Hkv) % 2 == 0 and 4 * blocks >= 3 * sm_count:
+        return 2
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
@@ -28,13 +54,15 @@ def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
         raise ValueError(f"flash_prefill: unsupported hd={hd}, H={H}, "
                          f"Hkv={Hkv}")
     out = torch.empty_like(q)       # keeps q's strides (dense views)
+    require_aligned("flash_prefill", q, k, v, out)
     strides = bhs_strides(q, k, v, out)
+    qh = flash_heads_per_block(B, H, Hkv, Sq, _sm_count(q.device.index or 0))
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     check(library().flash_prefill(
         DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), strides, B, H, Hkv, Sq, Skv, int(bool(causal)),
-        int(window), float(scale), float(softcap or 0.0), stream_of(q)),
-        "flash_prefill")
+        out.data_ptr(), strides, B, H, Hkv, Sq, Skv,
+        int(bool(causal)), int(window), float(scale), float(softcap or 0.0),
+        qh, stream_of(q)), "flash_prefill")
     flash_prefill.launches += 1
     return out
 

@@ -78,6 +78,60 @@ def test_flash_prefill_kernel(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [512, 1024, 200])
+def test_flash_prefill_kernel_yi6b_width(cuda, S, dtype, monkeypatch):
+    """yi-6b heads (H=32, Hkv=4, hd 128) at the serve phase's from-scratch
+    prefill lengths and the PERF shape, in the model's layout; in bf16
+    with one and with two query heads a block; two identical calls give
+    identical bits."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    rng = np.random.default_rng(12)
+    q = _t(rng, cuda, dtype, 1, S, 32, 128).transpose(1, 2)
+    k = _t(rng, cuda, dtype, 1, S, 4, 128).transpose(1, 2)
+    v = _t(rng, cuda, dtype, 1, S, 4, 128).transpose(1, 2)
+    want = flash_prefill_op(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), plain=True).transpose(1, 2)
+    for qh in ((1, 2) if dtype == torch.bfloat16 else (1,)):
+        monkeypatch.setattr(fk, "flash_heads_per_block",
+                            lambda *shape, qh=qh, **_: qh)
+        got = fk.flash_prefill(q, k, v)
+        again = fk.flash_prefill(q, k, v)
+        _close(got, want, dtype)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, Sq, Skv, hd, window, softcap)
+    (1, 8, 2, 300, 300, 128, 100, 20.0),      # window + soft cap, hd 128
+    (2, 8, 2, 190, 190, 64, 64, 30.0),        # window + soft cap, hd 64
+    (1, 6, 2, 100, 357, 128, 0, 0.0),         # Sq < Skv; H/Hkv = 3
+    (2, 3, 1, 129, 129, 64, 0, 0.0),          # odd group, ragged S
+    (1, 4, 4, 65, 65, 32, 0, 5.0),            # MHA, hd 32, one extra row
+])
+def test_flash_prefill_kernel_bf16_edges(cuda, case, monkeypatch):
+    """The wgmma kernel's edges in bf16: the window's lower edge and the
+    soft cap at hd 64 and 128, the offset mask of Sq < Skv, groups of odd
+    size (one query head a block), S not a multiple of 64; with two heads
+    a block wherever the group allows."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    B, H, Hkv, Sq, Skv, hd, window, cap = case
+    dt = torch.bfloat16
+    rng = np.random.default_rng(13)
+    q = _t(rng, cuda, dt, B, Sq, H, hd).transpose(1, 2)
+    k = _t(rng, cuda, dt, B, Skv, Hkv, hd).transpose(1, 2)
+    v = _t(rng, cuda, dt, B, Skv, Hkv, hd).transpose(1, 2)
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    want = flash_prefill_ref(q, k, v, causal=True, window=window,
+                             softcap=cap)
+    for qh in ((1, 2) if (H // Hkv) % 2 == 0 else (1,)):
+        monkeypatch.setattr(fk, "flash_heads_per_block",
+                            lambda *shape, qh=qh, **_: qh)
+        got = fk.flash_prefill(q, k, v, causal=True, window=window,
+                               softcap=cap)
+        _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [
     # (B, H, Hkv, hd, num_pages, page, pages_per_seq)
     (2, 8, 2, 64, 16, 16, 4),
@@ -378,3 +432,30 @@ def test_ssd_scan_kernel_initial_state_and_padded_tail(cuda):
     np.testing.assert_allclose(y.cpu().numpy(), ry.cpu().numpy(), **tol)
     np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(), **tol)
     np.testing.assert_allclose(h.cpu().numpy(), h40.cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (b, S, nh, hd, G, N, chunk)
+    (1, 1536, 80, 64, 1, 128, 256),          # the traced prefill, 6 chunks
+    (2, 400, 8, 32, 2, 64, 200),             # G = 2, 4 heads a block
+    (1, 192, 12, 128, 2, 128, 96),           # hd 128, ragged query tiles
+])
+def test_ssd_scan_kernel_chunks_groups_and_h0(cuda, shape, dtype):
+    """The three-phase kernel with an initial state, against the plain
+    version; G = 2 splits the heads across head blocks of one group each;
+    two identical calls give identical bits (no atomics)."""
+    b, S, nh, hd, G, N, chunk = shape
+    rng = np.random.default_rng(14)
+    args = _ssd_inputs(rng, cuda, dtype, b, S, nh, hd, G, N)
+    h0 = torch.from_numpy(rng.standard_normal((b, nh, hd, N)).astype(
+        np.float32)).to(cuda)
+    y, h = ssd_scan_op(*args, chunk=chunk, h0=h0)
+    y2, h2 = ssd_scan_op(*args, chunk=chunk, h0=h0)
+    ry, rh = ssd_scan_op(*args, chunk=chunk, h0=h0, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.float().cpu().numpy(), **SSD_TOLS[dtype])
+    np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(),
+                               **SSD_TOLS[torch.float32])

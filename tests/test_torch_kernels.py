@@ -348,3 +348,26 @@ def test_kernel_strides_read_model_layout_views():
     assert out.stride() == view.stride()          # output keeps the layout
     with pytest.raises(ValueError):
         bhs_strides(x.transpose(2, 3))
+
+
+def test_flash_heads_per_block_is_a_function_of_shapes():
+    """The bf16 kernel serves two query heads of one kv head a block where
+    the group size is even and the grid still has a block for 3/4 of the
+    SMs; otherwise one (yi-6b: 32 heads over 4 kv heads)."""
+    hpb = flash_kernel.flash_heads_per_block
+    assert hpb(1, 32, 4, 1024) == 2           # 16 pairs x 16 q tiles
+    assert hpb(1, 32, 4, 512) == 2            # 16 x 8 = 128 blocks
+    assert hpb(1, 32, 4, 200) == 1            # 16 x 4 = 64 blocks
+    assert hpb(2, 32, 4, 200) == 2
+    assert hpb(8, 6, 2, 1024) == 1            # a group of 3
+    assert hpb(1, 32, 4, 512, sm_count=200) == 1
+
+
+def test_bhs_strides_of_size_one_dims_are_16_byte_units():
+    """A tensor map wants every stride in 16-byte units; PyTorch leaves
+    the stride of a dim of size 1 free, so it is replaced by one that
+    qualifies (never stepped over)."""
+    x = torch.zeros(1, 7, 1, 64)[:, :, :, :].transpose(1, 2)  # (1, 1, 7, 64)
+    st = list(bhs_strides(x))
+    assert st[2] == x.stride(2)
+    assert all(s * 2 % 16 == 0 for s in st)
