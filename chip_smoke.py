@@ -19,7 +19,12 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    each row prints its achieved rate beside its bound (in f32 and bf16),
    `paged_decode` its split count, `flash_prefill` and `ssd_scan` the
    heads a block, and the split kernels whether two identical calls gave
-   identical bits.
+   identical bits. The decode path's fused insert + decode kernel runs at
+   the serve shapes too: output against the plain version (insert, then
+   decode), both pools byte-equal, timed in turns with `paged_decode`
+   alone on the same pools, so its row shows the insert's marginal cost;
+   the standalone `paged_insert` also runs at B=1, the card's launch
+   floor under the same timing.
 3. serve yi-6b: `DisaggCluster` at full yi-6b width (random f32 weights
    from a seed, shared by both engines) serves a trace of 8 requests, some
    sharing a system prompt, with the prefix cache and 512-token chunked
@@ -35,8 +40,9 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    same comparison in f32 at the serving weights is printed for
    information. (c) For information, a `torch.profiler` trace of one
    batch-8 decode step, one 512-token prefill from scratch and one
-   512-token chunk over a 1024-token prefix. The yi-6b weights are then
-   freed.
+   512-token chunk over a 1024-token prefix; the decode step's trace must
+   hold one split kernel a layer and no standalone `paged_insert_kernel`.
+   The yi-6b weights are then freed.
 5. serve mamba2-2.7b: the same trace through `DisaggCluster` at full
    mamba2-2.7b width on the dense state slab (exact-length prefill, no
    prefix cache, no chunking). Every prefill layer runs `ssd_scan`; its
@@ -192,11 +198,10 @@ def kernel_phase(cfg, dtypes):
     from repro_torch.kernels.flash_prefill.kernel import (
         flash_heads_per_block, flash_prefill)
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
-    from repro_torch.kernels.paged_decode.kernel import (decode_split,
-                                                         paged_decode,
-                                                         paged_insert)
-    from repro_torch.kernels.paged_decode.ref import (paged_decode_ref,
-                                                      paged_insert_ref)
+    from repro_torch.kernels.paged_decode.kernel import (
+        decode_split, paged_decode, paged_insert, paged_insert_decode)
+    from repro_torch.kernels.paged_decode.ref import (
+        paged_decode_ref, paged_insert_decode_ref, paged_insert_ref)
     from repro_torch.kernels.prefix_prefill.kernel import prefix_prefill
     from repro_torch.kernels.prefix_prefill.ref import prefix_prefill_ref
 
@@ -258,6 +263,109 @@ def kernel_phase(cfg, dtypes):
             library="page gather + scaled_dot_product_attention",
             bytes=nbytes, flops=4 * n_ctx * H * hd,
             split_pages=per, n_split=n_split, blocks=B * Hkv * n_split)
+
+    def insert_decode_row(dtype, es, B, pps, lens):
+        """The fused insert-and-decode kernel over B tables of `pps` pages
+        (slots past each live length on trash page 0), on enough pool copies
+        that each call reads its K/V cold, beside `paged_decode` alone on
+        the same pools, timed in turns (fused, alone, fused, alone). The
+        output is held to TOL, both pools must be byte-equal to the plain
+        version's, and the decode-only kernel over the pools the fused call
+        left must give the same bits. Bound: the decode's bytes plus the
+        new rows read and written."""
+        num_pages = B * pps + 1
+        q = randn(B, H, hd, dtype=dtype)
+        kn = randn(B, Hkv, hd, dtype=dtype)
+        vn = randn(B, Hkv, hd, dtype=dtype)
+        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        table = perm.reshape(B, pps).to(torch.int32)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        slot = torch.arange(pps, device=dev)[None]
+        table[slot >= (lens[:, None] + page - 1) // page] = 0
+        n_ctx = int(lens.sum())
+        live_pages = int(((lens + page - 1) // page).sum())
+        dec_bytes = (2 * B * H * hd * es + 2 * n_ctx * Hkv * hd * es
+                     + live_pages * 4 + B * 4)
+        nbytes = dec_bytes + 4 * B * Hkv * hd * es
+        pools = [(randn(num_pages, page, Hkv, hd, dtype=dtype),
+                  randn(num_pages, page, Hkv, hd, dtype=dtype))
+                 for _ in range(cold_copies(nbytes))]
+        kp, vp = pools[0]
+        k2, v2 = kp.clone(), vp.clone()
+        out = paged_insert_decode(q, kn, vn, kp, vp, table, lens)
+        again = paged_insert_decode(q, kn, vn, kp, vp, table, lens)
+        alone = paged_decode(q, kp, vp, table, lens)
+        ref = paged_insert_decode_ref(q, kn, vn, k2, v2, table, lens)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, dn)
+        pools_equal = bool(torch.equal(kp, k2) and torch.equal(vp, v2))
+        same = bool(torch.equal(out, again))
+        as_decode = bool(torch.equal(out, alone))
+        del k2, v2
+        pos = torch.arange(pps * page, device=dev)
+        mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+        wp = lens.long() - 1
+        li = table[torch.arange(B, device=dev), wp // page].long()
+        lo = wp % page
+
+        def lib(kp, vp):
+            kp.index_put_((li, lo), kn)
+            vp.index_put_((li, lo), vn)
+            ks = kp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
+            vs = vp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
+            return sdpa(q[:, :, None], ks, vs, mask=mask)
+        fused = [lambda kp=kp, vp=vp: paged_insert_decode(q, kn, vn, kp, vp,
+                                                          table, lens)
+                 for kp, vp in pools]
+        dec = [lambda kp=kp, vp=vp: paged_decode(q, kp, vp, table, lens)
+               for kp, vp in pools]
+        turns = [time_ms(f, iters=50) for f in (fused, dec, fused, dec)]
+        ms, dec_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        per, n_split = decode_split(B, Hkv, pps, page, sms)
+        return dict(
+            shape=f"B={B} ctx<={int(lens.max())} pps={pps} page={page} H={H} "
+                  f"Hkv={Hkv} hd={hd}",
+            max_abs_err=err, ok=ok and pools_equal and same and as_decode,
+            pools_byte_equal=pools_equal, repeat_identical=same,
+            equals_decode_alone=as_decode,
+            ms=ms, decode_ms=dec_ms, marginal_ms=ms - dec_ms,
+            turns_ms=turns,
+            plain_ms=time_ms(lambda: paged_insert_decode_ref(
+                q, kn, vn, kp, vp, table, lens)),
+            library_ms=time_ms([lambda kp=kp, vp=vp: lib(kp, vp)
+                                for kp, vp in pools]),
+            library="index_put_ (K and V) + page gather + "
+                    "scaled_dot_product_attention",
+            bytes=nbytes, decode_bytes=dec_bytes, flops=4 * n_ctx * H * hd,
+            split_pages=per, n_split=n_split, blocks=B * Hkv * n_split)
+
+    def insert_row(dtype, es, B, kp, vp, table):
+        """The standalone paged_insert: one token for each of B sequences
+        into distinct pages, byte-exact against the plain version."""
+        kn = randn(B, Hkv, hd, dtype=dtype)
+        vn = randn(B, Hkv, hd, dtype=dtype)
+        pidx = table[:B, 5].contiguous()                   # distinct pages
+        off = torch.arange(B, dtype=torch.int32, device=dev) % page
+        k1, v1 = kp.clone(), vp.clone()
+        k2, v2 = kp.clone(), vp.clone()
+        paged_insert(k1, v1, kn, vn, pidx, off)
+        paged_insert_ref(k2, v2, kn, vn, pidx, off)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(k1, k2) and torch.equal(v1, v2))
+        li, lo = pidx.long(), off.long()
+
+        def lib_insert():
+            k1.index_put_((li, lo), kn)
+            v1.index_put_((li, lo), vn)
+        return dict(
+            shape=f"B={B} page={page} Hkv={Hkv} hd={hd}",
+            max_abs_err=float((k1.float() - k2.float()).abs().max()),
+            ok=exact,
+            ms=time_ms(lambda: paged_insert(k1, v1, kn, vn, pidx, off)),
+            plain_ms=time_ms(lambda: paged_insert_ref(k2, v2, kn, vn, pidx,
+                                                      off)),
+            library_ms=time_ms(lib_insert), library="index_put_ (K and V)",
+            bytes=4 * B * Hkv * hd * es + 2 * B * 4, flops=0)
 
     def prefix_row(dtype, es, Sq, P):
         """prefix_prefill: an Sq-token suffix over a P-token prefix."""
@@ -357,33 +465,16 @@ def kernel_phase(cfg, dtypes):
         kp = randn(B * ctx // page + 1, page, Hkv, hd, dtype=dtype)
         vp = randn(B * ctx // page + 1, page, Hkv, hd, dtype=dtype)
 
-        # -- paged_insert: one token per sequence, byte-exact ------------
-        kn = randn(B, Hkv, hd, dtype=dtype)
-        vn = randn(B, Hkv, hd, dtype=dtype)
-        pidx = table[:, 5].contiguous()                    # distinct pages
-        off = torch.arange(B, dtype=torch.int32, device=dev) % page
-        k1, v1 = kp.clone(), vp.clone()
-        k2, v2 = kp.clone(), vp.clone()
-        paged_insert(k1, v1, kn, vn, pidx, off)
-        paged_insert_ref(k2, v2, kn, vn, pidx, off)
-        torch.cuda.synchronize()
-        exact = bool(torch.equal(k1, k2) and torch.equal(v1, v2))
-        nbytes = 4 * B * Hkv * hd * es + 2 * B * 4
-        li, lo = pidx.long(), off.long()
-
-        def lib_insert():
-            k1.index_put_((li, lo), kn)
-            v1.index_put_((li, lo), vn)
-        rows["paged_insert"] = dict(
-            shape=f"B={B} page={page} Hkv={Hkv} hd={hd}",
-            max_abs_err=float((k1.float() - k2.float()).abs().max()),
-            ok=exact,
-            ms=time_ms(lambda: paged_insert(k1, v1, kn, vn, pidx, off)),
-            plain_ms=time_ms(lambda: paged_insert_ref(k2, v2, kn, vn, pidx,
-                                                      off)),
-            library_ms=time_ms(lib_insert), library="index_put_ (K and V)",
-            bytes=nbytes, flops=0)
-        del k1, v1, k2, v2
+        # -- paged_insert: one token per sequence, byte-exact; at B=1 the
+        #    card's launch floor under the same timing ----------------------
+        rows["paged_insert"] = insert_row(dtype, es, B, kp, vp, table)
+        rows["paged_insert_b1"] = insert_row(dtype, es, 1, kp, vp, table)
+        del kp, vp
+        # -- the decode path's fused insert + decode, at the serve shapes --
+        rows["paged_insert_decode_serve_b8"] = insert_decode_row(
+            dtype, es, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33])
+        rows["paged_insert_decode_serve_b1"] = insert_decode_row(
+            dtype, es, 1, 128, [1500])
 
         # -- prefix_prefill: a 512-token suffix over a 1024-token prefix -
         rows["prefix_prefill"] = prefix_row(dtype, es, 512, 1024)
@@ -407,7 +498,12 @@ def kernel_phase(cfg, dtypes):
                     for q in (1, 2) if f"ms_heads_per_block_{q}" in r)
             if "repeat_identical" in r:
                 split += f" repeat_identical={r['repeat_identical']}"
-            log(f"kernel {name:21s} {dn:8s} {r['shape']}: "
+            if "marginal_ms" in r:
+                split += (f" decode_alone_ms={r['decode_ms']:.4f} "
+                          f"insert_marginal_ms={r['marginal_ms']:.4f} "
+                          f"pools_byte_equal={r['pools_byte_equal']} "
+                          f"equals_decode_alone={r['equals_decode_alone']}")
+            log(f"kernel {name:28s} {dn:8s} {r['shape']}: "
                 f"max_abs_err={r['max_abs_err']:.3e} "
                 f"{'ok' if r['ok'] else 'MISMATCH'} "
                 f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -619,10 +715,10 @@ def smoke_tokens_check(name, **cluster_kw):
 def teacher_force(eng, tokens, n_first, n_prompt, plain):
     """On a fresh cache of `eng` (batch 1): prefill `tokens[:n_first]`
     from scratch (flash_prefill), then `tokens[n_first:n_prompt]` over the
-    pool pages (prefix_prefill), then one decode step (paged_insert +
-    paged_decode) per remaining token. `plain=True` runs the plain
-    versions instead of the kernels. Returns every stage's logits in
-    f32."""
+    pool pages (prefix_prefill), then one decode step (the fused
+    paged_insert + paged_decode) per remaining token. `plain=True` runs
+    the plain versions instead of the kernels. Returns every stage's
+    logits in f32."""
     import torch
     ps = eng._kv.page_size
     eng._cache = cache = eng._empty_cache()
@@ -804,11 +900,12 @@ def device_profile(fn, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.Counter()
-    n = 0
+    count = collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
-            n += 1
+            count[e.name] += 1
+    n = sum(count.values())
     busy = sum(by_name.values())
     top = [(k[:60], round(v, 3)) for k, v in by_name.most_common(5)]
     # the port's own kernels, by the name of the op they serve
@@ -816,7 +913,7 @@ def device_profile(fn, label):
               for op in SOURCES if any(op in k for k in by_name)}
     out = dict(wall_ms=wall_ms, device_busy_ms=busy, kernels=n,
                idle_share=1 - busy / wall_ms if wall_ms else None, top=top,
-               ported_ms=ported)
+               ported_ms=ported, launches_by_kernel=dict(count))
     log(f"profile {label}: wall={wall_ms:.3f}ms device_busy={busy:.3f}ms "
         f"idle_share={out['idle_share']:.3f} kernels={n} top={top} "
         f"ported_ms={ported}")
@@ -851,8 +948,10 @@ def mamba_profile(cfg, params):
 
 def yi_profile(cfg, params):
     """Where a yi-6b step's time goes, f32: one decode step at batch 8 over
-    the serve trace's prompt lengths (paged_insert + paged_decode in every
-    layer), one 512-token prefill from scratch (flash_prefill in every
+    the serve trace's prompt lengths (the fused paged_insert +
+    paged_decode in every layer; fails unless the trace shows one split
+    kernel a layer and no standalone `paged_insert_kernel`), one 512-token
+    prefill from scratch (flash_prefill in every
     layer, the serve phase's first chunk) and one 512-token chunk over a
     1024-token prefix (prefix_prefill in every layer), on an Engine's
     paged cache."""
@@ -873,10 +972,22 @@ def yi_profile(cfg, params):
     chunk = torch.randint(1, cfg.vocab_size, (1, 512), device=dev,
                           generator=gen)
     pools = {k: v for k, v in cache.items() if k.startswith("seg")}
+    decode = device_profile(
+        lambda: eng.model.decode_step_paged(eng.params, cache, step),
+        f"{cfg.name} decode step, batch 8, contexts 200..1500")
+    split = sum(c for k, c in decode["launches_by_kernel"].items()
+                if "paged_decode_split_kernel" in k)
+    alone = sum(c for k, c in decode["launches_by_kernel"].items()
+                if "paged_insert_kernel" in k)
+    log(f"profile {cfg.name} decode step: kernels={decode['kernels']} "
+        f"paged_decode_split_kernel={split} paged_insert_kernel={alone} "
+        f"(the insert runs inside the split kernel: expected {cfg.num_layers}"
+        f" and 0)")
+    if split != cfg.num_layers or alone:
+        raise SystemExit("profile: the decode step did not run one fused "
+                         "insert + decode kernel a layer")
     out = {
-        "decode_b8": device_profile(
-            lambda: eng.model.decode_step_paged(eng.params, cache, step),
-            f"{cfg.name} decode step, batch 8, contexts 200..1500"),
+        "decode_b8": decode,
         "prefill_512": device_profile(
             lambda: eng.model.forward(eng.params, chunk, return_cache=True),
             f"{cfg.name} 512-token prefill from scratch"),

@@ -41,6 +41,23 @@
 // Idle decode slots all target the reserved trash page 0, so several
 // blocks may write the same trash row at once: benign, and never a live
 // page (the engine points every idle slot's table row at page 0).
+//
+// On the decode path the insert is not launched on its own: it moves 16-32
+// KB a step, ~10 ns of HBM time under a ~2.5 us launch. The split kernel's
+// INSERT instance (entry paged_insert_decode) computes paged_insert at
+// page table[b, (len-1) / page], row (len-1) % page, followed by
+// paged_decode, in one launch, as TensorRT-LLM's masked multi-head
+// attention writes the current token's K/V. The block (b, kh, sp) whose
+// range [start, end) holds position len - 1 (always the last row of its
+// last tile, as end = len there) writes k/v_new[b, kh] into both pools,
+// rounded to the storage type, and after the cp.async wait of that tile
+// overwrites the same row of its shared-memory ring with those values: the
+// row its copy brought may be stale or new, as the copy and the store race
+// within the block, and neither matters. No other block reads that row:
+// the prefix cache shares only full pages, so a tail page being written
+// belongs to one sequence. Idle slots (table rows all trash page 0) both
+// write and read page 0 in the same launch; that race touches only rows
+// whose outputs the engine throws away. len = 0 writes nothing.
 #include "attn_mma.cuh"
 
 using namespace attn;
@@ -65,13 +82,25 @@ struct DecodeSmem {
   }
 };
 
-template <typename T, int HD>
+// The new token's rows for the INSERT instance: k/v_new (B, Hkv, hd) in
+// TN (the pools' type or f32), and the pools to write them into (the same
+// memory as the kernel's kp/vp, which it reads only through cp.async).
+// Empty in the decode-only instance.
+template <typename T, typename TN>
+struct InsertRows {
+  const TN* kn;
+  const TN* vn;
+  T* kw;
+  T* vw;
+};
+
+template <typename T, int HD, bool INSERT, typename TN>
 __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kp,
     const T* __restrict__ vp, const int* __restrict__ table,
     const int* __restrict__ lens, float* __restrict__ ws_acc,
     float* __restrict__ ws_ml, int H, int Hkv, int page, int pps,
-    int split_pages, float scale, float softcap) {
+    int split_pages, float scale, float softcap, InsertRows<T, TN> ins) {
   using L = DecodeSmem<T, HD>;
   constexpr int CPR = HD / L::EPC;             // 16-byte chunks a row
   constexpr int NPG = DEC_NT / (HD / 4);       // P.V head groups
@@ -109,6 +138,23 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
 
   const int* tab = table + (long long)b * pps;
   const long long row_elems = (long long)Hkv * HD;
+
+  // INSERT: this block owns position len - 1 iff it lies in [start, end);
+  // thread tid < HD keeps element tid of the new K and V rows
+  const bool owner = INSERT && len - 1 < end;
+  T k_new = from_f32<T>(0.f), v_new = from_f32<T>(0.f);
+  if constexpr (INSERT) {
+    if (owner && tid < HD) {
+      const long long src = ((long long)b * Hkv + kh) * HD + tid;
+      k_new = from_f32<T>(to_f32(ins.kn[src]));
+      v_new = from_f32<T>(to_f32(ins.vn[src]));
+      const long long dst =
+          ((long long)tab[(len - 1) / page] * page + (len - 1) % page) *
+              row_elems + (long long)kh * HD + tid;
+      ins.kw[dst] = k_new;
+      ins.vw[dst] = v_new;
+    }
+  }
   const int ntiles = (end - start + DEC_ROWS - 1) / DEC_ROWS;
   auto issue = [&](int t, int buf) {
     const int k0 = start + t * DEC_ROWS;
@@ -168,6 +214,17 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
     const T* kt = Ks + (t & 1) * DEC_ROWS * L::KS;
     const T* vt = Vs + (t & 1) * DEC_ROWS * L::VS;
     const int k0 = start + t * DEC_ROWS;
+    if constexpr (INSERT) {
+      // the owner's last tile ends at len - 1: its ring row takes the new
+      // values, whatever the copy of that row read
+      if (owner && t == ntiles - 1) {
+        if (tid < HD) {
+          Ks[((t & 1) * DEC_ROWS + len - 1 - k0) * L::KS + tid] = k_new;
+          Vs[((t & 1) * DEC_ROWS + len - 1 - k0) * L::VS + tid] = v_new;
+        }
+        __syncthreads();
+      }
+    }
 
     // scores of row `lane` for this warp's heads, then the warp-local
     // softmax update of each head
@@ -298,14 +355,15 @@ __global__ void __launch_bounds__(HD) paged_decode_combine_kernel(
   o[(long long)bh * HD + d] = from_f32<T>(a / fmaxf(l, DEN_MIN));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool INSERT, typename TN>
 static cudaError_t launch_decode(const void* q, const void* kp,
                                  const void* vp, const void* table,
                                  const void* lens, void* o, void* ws, int B,
                                  int H, int Hkv, int page, int pps,
                                  int split_pages, int n_split, float scale,
-                                 float softcap, cudaStream_t stream) {
-  auto kern = paged_decode_split_kernel<T, HD>;
+                                 float softcap, InsertRows<T, TN> ins,
+                                 cudaStream_t stream) {
+  auto kern = paged_decode_split_kernel<T, HD, INSERT, TN>;
   const size_t bytes = DecodeSmem<T, HD>::bytes(H / Hkv);
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return err;
@@ -315,13 +373,19 @@ static cudaError_t launch_decode(const void* q, const void* kp,
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lens), ws_acc, ws_ml, H, Hkv, page, pps,
-      split_pages, scale, softcap);
+      split_pages, scale, softcap, ins);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_decode_combine_kernel<T, HD><<<B * H, HD, 0, stream>>>(
       ws_acc, ws_ml, static_cast<const int*>(lens), static_cast<T*>(o), H,
       page, pps, split_pages, n_split);
   return cudaGetLastError();
+}
+
+static bool decode_shapes_ok(int H, int Hkv, int pps, int split_pages,
+                             int n_split) {
+  return H % Hkv == 0 && H / Hkv <= DEC_GMAX && split_pages >= 1 &&
+         n_split >= 1 && (long long)n_split * split_pages >= pps;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q/o (B, H, hd), pools (num_pages,
@@ -336,18 +400,61 @@ extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
                             int split_pages, int n_split, float scale,
                             float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % Hkv || H / Hkv > DEC_GMAX || split_pages < 1 || n_split < 1 ||
-      (long long)n_split * split_pages < pps)
+  if (!decode_shapes_ok(H, Hkv, pps, split_pages, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    ATTN_DISPATCH_HD(hd, HD, err = launch_decode<float, HD>(
+    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<float, HD, false, float>(
         q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
-        n_split, scale, softcap, s));
+        n_split, scale, softcap, {}, s)));
   } else if (dtype == 1) {
-    ATTN_DISPATCH_HD(hd, HD, err = launch_decode<__nv_bfloat16, HD>(
+    ATTN_DISPATCH_HD(hd, HD,
+        err = (launch_decode<__nv_bfloat16, HD, false, __nv_bfloat16>(
+            q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps,
+            split_pages, n_split, scale, softcap, {}, s)));
+  }
+  return static_cast<int>(err);
+}
+
+// paged_insert at (table[b, (len-1) / page], (len-1) % page) of each
+// sequence, then paged_decode, in the same two launches as paged_decode.
+// new_dtype: the type of k/v_new (B, Hkv, hd) contiguous, 0 = float32 or
+// the pools' dtype; they are rounded to the pools' type in the kernel. The
+// pools are written in place. Otherwise as paged_decode.
+extern "C" int paged_insert_decode(int dtype, int new_dtype, int hd,
+                                   const void* q, const void* kn,
+                                   const void* vn, void* kp, void* vp,
+                                   const void* table, const void* lens,
+                                   void* o, void* ws, int B, int H, int Hkv,
+                                   int page, int pps, int split_pages,
+                                   int n_split, float scale, float softcap,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!decode_shapes_ok(H, Hkv, pps, split_pages, n_split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using BF = __nv_bfloat16;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && new_dtype == 0) {
+    const InsertRows<float, float> ins{
+        static_cast<const float*>(kn), static_cast<const float*>(vn),
+        static_cast<float*>(kp), static_cast<float*>(vp)};
+    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<float, HD, true, float>(
         q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
-        n_split, scale, softcap, s));
+        n_split, scale, softcap, ins, s)));
+  } else if (dtype == 1 && new_dtype == 1) {
+    const InsertRows<BF, BF> ins{
+        static_cast<const BF*>(kn), static_cast<const BF*>(vn),
+        static_cast<BF*>(kp), static_cast<BF*>(vp)};
+    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<BF, HD, true, BF>(
+        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
+        n_split, scale, softcap, ins, s)));
+  } else if (dtype == 1 && new_dtype == 0) {
+    const InsertRows<BF, float> ins{
+        static_cast<const float*>(kn), static_cast<const float*>(vn),
+        static_cast<BF*>(kp), static_cast<BF*>(vp)};
+    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<BF, HD, true, float>(
+        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
+        n_split, scale, softcap, ins, s)));
   }
   return static_cast<int>(err);
 }

@@ -38,6 +38,8 @@ SIGNATURES = {
     "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _F, _F, _P],
     "paged_insert": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "paged_insert_decode": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                  _I, _I, _I, _I, _I, _I, _P, _P],
 }

@@ -43,27 +43,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
-                 softcap: float = 0.0):
-    """q: (B, H, hd); k/v_pages: (num_pages, page, Hkv, hd); block_table:
-    (B, pps) i32; lens: (B,) i32 -> (B, H, hd). Two launches (split,
-    combine) count as one call of the op."""
-    require_cuda("paged_decode", q, k_pages, v_pages, block_table, lens)
-    B, H, hd = q.shape
-    _, page, Hkv, _ = k_pages.shape
+def _check_decode(name, q, k_pages, v_pages, block_table, lens):
+    """The checks every decode launch makes; raises on what the split
+    kernel does not take."""
+    require_cuda(name, q, k_pages, v_pages, block_table, lens)
+    _, H, hd = q.shape
+    Hkv = k_pages.shape[2]
     if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
-        raise TypeError(f"paged_decode: f32/bf16 of one dtype, got "
+        raise TypeError(f"{name}: f32/bf16 of one dtype, got "
                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
     if hd not in HEAD_DIMS or H % Hkv or H // Hkv > DEC_GMAX:
-        raise ValueError(f"paged_decode: unsupported hd={hd}, H={H}, "
-                         f"Hkv={Hkv}")
+        raise ValueError(f"{name}: unsupported hd={hd}, H={H}, Hkv={Hkv}")
     if block_table.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise TypeError("paged_decode: block_table and lens must be int32")
-    q = q.contiguous()
-    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
-    block_table, lens = block_table.contiguous(), lens.contiguous()
-    require_aligned("paged_decode", k_pages, v_pages)
+        raise TypeError(f"{name}: block_table and lens must be int32")
+
+
+def _launch_decode(q, k_pages, v_pages, block_table, lens, scale, softcap,
+                   k_new=None, v_new=None):
+    """Allocate the output and the split workspace and launch the C entry
+    `paged_decode`, or `paged_insert_decode` when new rows are given."""
+    B, H, hd = q.shape
+    _, page, Hkv, _ = k_pages.shape
     pps = block_table.shape[1]
     per, n_split = decode_split(B, Hkv, pps, page,
                                 _sm_count(q.device.index or 0))
@@ -71,16 +72,72 @@ def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
     ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
                      device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    check(library().paged_decode(
-        DTYPE_CODES[q.dtype], hd, q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), block_table.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), B, H, Hkv, page, pps, per, n_split,
-        float(scale), float(softcap or 0.0), stream_of(q)), "paged_decode")
+    tail = (k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, Hkv, page,
+            pps, per, n_split, float(scale), float(softcap or 0.0),
+            stream_of(q))
+    if k_new is None:
+        check(library().paged_decode(DTYPE_CODES[q.dtype], hd, q.data_ptr(),
+                                     *tail), "paged_decode")
+    else:
+        check(library().paged_insert_decode(
+            DTYPE_CODES[q.dtype], DTYPE_CODES[k_new.dtype], hd, q.data_ptr(),
+            k_new.data_ptr(), v_new.data_ptr(), *tail),
+            "paged_insert_decode")
+    return out
+
+
+def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
+                 softcap: float = 0.0):
+    """q: (B, H, hd); k/v_pages: (num_pages, page, Hkv, hd); block_table:
+    (B, pps) i32; lens: (B,) i32 -> (B, H, hd). Two launches (split,
+    combine) count as one call of the op."""
+    _check_decode("paged_decode", q, k_pages, v_pages, block_table, lens)
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    block_table, lens = block_table.contiguous(), lens.contiguous()
+    require_aligned("paged_decode", k_pages, v_pages)
+    out = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
+                         softcap)
     paged_decode.launches += 1
     return out
 
 
 paged_decode.launches = 0
+
+
+def paged_insert_decode(q, k_new, v_new, k_pages, v_pages, block_table,
+                        lens, *, scale=None, softcap: float = 0.0):
+    """`paged_insert` of k/v_new (B, Hkv, hd) at page `block_table[b,
+    (len-1) // page]`, row `(len-1) % page` (len = min(lens[b], pps *
+    page); nothing where it is 0), in place, then `paged_decode`, in the
+    split kernel's two launches. k/v_new are f32 or the pools' dtype and
+    are rounded to the pools' dtype in the kernel. One call counts once
+    in `paged_decode.launches` and once in `paged_insert.launches`."""
+    name = "paged_insert_decode"
+    _check_decode(name, q, k_pages, v_pages, block_table, lens)
+    require_cuda(name, q, k_new, v_new)
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError(f"{name}: the pools are written in place and "
+                         f"must be contiguous")
+    B, _, hd = q.shape
+    Hkv = k_pages.shape[2]
+    if tuple(k_new.shape) != (B, Hkv, hd) or k_new.shape != v_new.shape:
+        raise ValueError(f"{name}: new rows {tuple(k_new.shape)} do not "
+                         f"match (B, Hkv, hd) = {(B, Hkv, hd)}")
+    if k_new.dtype not in (torch.float32, k_pages.dtype) \
+            or v_new.dtype != k_new.dtype:
+        raise TypeError(f"{name}: new rows of f32 or the pools' "
+                        f"{k_pages.dtype}, got {k_new.dtype}, "
+                        f"{v_new.dtype}")
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    block_table, lens = block_table.contiguous(), lens.contiguous()
+    require_aligned(name, k_pages, v_pages)
+    out = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
+                         softcap, k_new, v_new)
+    paged_decode.launches += 1
+    paged_insert.launches += 1
+    return out
 
 
 def paged_insert(k_pages, v_pages, k_new, v_new, page_idx, offset):

@@ -9,7 +9,7 @@ the kernels are held against.
 from __future__ import annotations
 
 from . import kernel
-from .ref import paged_decode_ref, paged_insert_ref
+from .ref import paged_decode_ref, paged_insert_decode_ref, paged_insert_ref
 
 
 def paged_decode_op(q, k_pages, v_pages, block_table, lens, *,
@@ -39,3 +39,20 @@ def paged_insert_op(k_pages, v_pages, k_new, v_new, page_idx, offset, *,
                                 offset)
     return kernel.paged_insert(k_pages, v_pages, k_new, v_new, page_idx,
                                offset)
+
+
+def paged_insert_decode_op(q, k_new, v_new, k_pages, v_pages, block_table,
+                           lens, *, scale: float = None,
+                           softcap: float = 0.0, plain: bool = False):
+    """The decode step's attention in one op: `paged_insert_op` of k/v_new
+    (B, Hkv, hd) at page `block_table[b, (lens[b]-1) // page]`, row
+    `(lens[b]-1) % page` (nothing where lens[b] = 0), in place, followed by
+    `paged_decode_op`. On the card both run in the split kernel of
+    `paged_decode` (no launch of its own for the insert). -> (B, H, hd)."""
+    if plain or not q.is_cuda:
+        return paged_insert_decode_ref(q, k_new, v_new, k_pages, v_pages,
+                                       block_table, lens, scale=scale,
+                                       softcap=softcap)
+    return kernel.paged_insert_decode(q, k_new, v_new, k_pages, v_pages,
+                                      block_table, lens, scale=scale,
+                                      softcap=softcap)

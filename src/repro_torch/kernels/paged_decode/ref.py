@@ -35,16 +35,48 @@ def paged_decode_ref(q, k_pages, v_pages, block_table, lens, *,
     return o.to(q.dtype)
 
 
+def insert_at_lens(k_pages, v_pages, k_new, v_new, block_table, lens,
+                   first_page: int = 0, n_pages=None):
+    """`paged_insert_ref` of each sequence's new row at position len - 1
+    (len = min(lens[b], pps * page)): page `block_table[b, (len-1) //
+    page]`, row `(len-1) % page`. Sequences with len = 0, or whose
+    position lies outside table slots [first_page, first_page + n_pages),
+    write nothing. Returns the pools."""
+    page = k_pages.shape[1]
+    pps = block_table.shape[1]
+    n = lens.long().clamp(max=pps * page)
+    slot = (n - 1).clamp(min=0) // page
+    hit = (n > 0) & (slot >= first_page)
+    if n_pages is not None:
+        hit &= slot < first_page + n_pages
+    b = torch.nonzero(hit).flatten()
+    pidx = block_table[b, slot[b]]
+    return paged_insert_ref(k_pages, v_pages, k_new[b], v_new[b], pidx,
+                            (n[b] - 1) % page)
+
+
+def paged_insert_decode_ref(q, k_new, v_new, k_pages, v_pages, block_table,
+                            lens, *, scale=None, softcap: float = 0.0):
+    """`insert_at_lens`, in place, then `paged_decode_ref`: the function of
+    the fused insert-and-decode kernel. Shapes as `paged_decode_ref`, with
+    k/v_new (B, Hkv, hd)."""
+    insert_at_lens(k_pages, v_pages, k_new, v_new, block_table, lens)
+    return paged_decode_ref(q, k_pages, v_pages, block_table, lens,
+                            scale=scale, softcap=softcap)
+
+
 def paged_decode_split_ref(q, k_pages, v_pages, block_table, lens, *,
                            split_pages: int, scale=None,
-                           softcap: float = 0.0):
+                           softcap: float = 0.0, k_new=None, v_new=None):
     """The CUDA kernel's split-and-merge algorithm in plain PyTorch (the
     tests hold it against the JAX kernel; the op never runs it). Split s
     covers table slots [s * split_pages, (s + 1) * split_pages) and gives a
     partial (m, l, acc) over its live positions, or the empty partial
     (NEG_INF, 0, 0) when it starts at or past `lens`. The partials merge in
     split order with corr = exp(m_s - m_max), then acc / max(l, 1e-37).
-    Same shapes as `paged_decode_ref`."""
+    Same shapes as `paged_decode_ref`. With `k_new`/`v_new` (B, Hkv, hd),
+    the split that holds position len - 1 first writes the new row there,
+    in place (`insert_at_lens`), as the kernel's insert instance does."""
     B, H, hd = q.shape
     _, page, Hkv, _ = k_pages.shape
     pps = block_table.shape[1]
@@ -54,6 +86,9 @@ def paged_decode_split_ref(q, k_pages, v_pages, block_table, lens, *,
     qf = q.float().reshape(B, Hkv, G, hd)
     parts = []
     for p0 in range(0, pps, split_pages):
+        if k_new is not None:
+            insert_at_lens(k_pages, v_pages, k_new, v_new, block_table, lens,
+                           p0, split_pages)
         tab = block_table[:, p0:p0 + split_pages].long()
         k = k_pages[tab].reshape(B, -1, Hkv, hd).float()
         v = v_pages[tab].reshape(B, -1, Hkv, hd).float()

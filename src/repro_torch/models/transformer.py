@@ -6,10 +6,10 @@ a leading layer axis, so weights carry over one for one
 (`repro_torch.weights.from_jax`). Layers run in a Python loop where JAX
 used `lax.scan`. Attention goes through the hand-written kernels:
 `flash_prefill` for a prefill from scratch, `prefix_prefill` for a
-prefill over pool pages, `paged_insert` + `paged_decode` for every decode
-step. Each op takes the plain version for CPU tensors; `plain=True`
-forces the plain version on any device (the reference of the whole-model
-check in `chip_smoke.py`).
+prefill over pool pages, `paged_insert` + `paged_decode` (one fused
+launch on the card) for every decode step. Each op takes the plain
+version for CPU tensors; `plain=True` forces the plain version on any
+device (the reference of the whole-model check in `chip_smoke.py`).
 
 Not ported yet: the dense-slab `decode_step`/`attn_decode` and the ring
 packing of windowed caches (ROADMAP A7), the dense `prefix_kv` branch
@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..kernels.flash_prefill.ops import flash_prefill_op
-from ..kernels.paged_decode.ops import paged_decode_op, paged_insert_op
+from ..kernels.paged_decode.ops import paged_insert_decode_op
 from ..kernels.prefix_prefill.ops import prefix_prefill_op
 from .common import (TensorSpec, apply_norm, apply_rope, embed_lookup,
                      layer_of, norm_params, param, rmsnorm)
@@ -280,8 +280,9 @@ def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
     The cache holds per-segment page pools `(layers, num_pages,
     page_size, Hkv, hd)` shared across sequences, plus one block table
     `(B, pages_per_seq)` used by every layer. The new token's K/V goes
-    into page `pos // page_size`, row `pos % page_size`, through the
-    `paged_insert` kernel, then attention runs through `paged_decode`.
+    into page `pos // page_size`, row `pos % page_size`, and attention
+    runs over the table, in one `paged_insert_decode_op` a layer (on the
+    card, `paged_decode`'s split kernel writes the row).
 
     The pools and `pos` are updated in place where they lie (JAX donated
     the cache buffers and returned new ones); the same dict comes back.
@@ -291,17 +292,13 @@ def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
         x = x * (cfg.d_model ** 0.5)
     pos = cache["pos"]
     table = cache["block_tables"]
-    B = tokens.shape[0]
     max_pps = table.shape[1]
-    bidx = torch.arange(B, device=x.device)
     for i, seg in enumerate(layer_plan(cfg)):
         kc, vc = cache[f"seg{i}"]["k"], cache[f"seg{i}"]["v"]
         page_size = kc.shape[2]
         # freed/idle slots keep pos growing into the reserved trash page 0;
-        # clamp so the page walk stays in-table and the write stays benign
-        wpos = torch.clamp(pos, max=max_pps * page_size - 1)
-        pidx = table[bidx, (wpos // page_size).long()]
-        off = wpos % page_size
+        # clamp so the page walk stays in-table and the write (at position
+        # lens - 1) stays benign
         lens = torch.clamp(pos + 1, max=max_pps * page_size)
         theta = _rope_theta(seg.kind, cfg)
         for l in range(seg.n):
@@ -309,9 +306,9 @@ def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
             h = apply_norm(x, pl["ln1"], cfg)
             q, k, v = _qkv(pl["attn"], h[:, None], cfg, pos[:, None], theta)
             q, k, v = q[:, 0], k[:, 0], v[:, 0]
-            paged_insert_op(kc[l], vc[l], k, v, pidx, off, plain=plain)
-            o = paged_decode_op(q, kc[l], vc[l], table, lens,
-                                softcap=cfg.attn_logit_softcap, plain=plain)
+            o = paged_insert_decode_op(q, k, v, kc[l], vc[l], table, lens,
+                                       softcap=cfg.attn_logit_softcap,
+                                       plain=plain)
             x = x + _out_proj(o, pl["attn"]["wo"])
             h = apply_norm(x, pl["ln2"], cfg)
             x = x + dense_ffn_apply(pl["ffn"], h, cfg)

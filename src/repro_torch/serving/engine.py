@@ -5,7 +5,8 @@ On the paged KV runtime (the dense decoder), KV storage is a pool of
 fixed-size pages plus per-sequence block tables, managed by
 `KVCacheManager`. Prefill caches are spliced in at page granularity (a
 block-table update plus an O(pages) in-place write into the pools) and
-decode runs through the `paged_insert` and `paged_decode` kernels.
+decode runs through `paged_insert` + `paged_decode`, fused into one
+kernel on the card.
 Prefill runs per request, right-padded to the JAX engine's length buckets
 and page buckets, so blob shapes and trash-padded tables match the JAX
 engine's.

@@ -17,11 +17,15 @@ import torch
 
 from repro_torch import kernels as tk
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_op
+from repro_torch.kernels.build import HEAD_DIMS
 from repro_torch.kernels.paged_decode.ops import (paged_decode_op,
+                                                  paged_insert_decode_op,
                                                   paged_insert_op)
 from repro_torch.kernels.paged_decode.kernel import decode_split
-from repro_torch.kernels.paged_decode.ref import (paged_decode_ref,
+from repro_torch.kernels.paged_decode.ref import (insert_at_lens,
+                                                  paged_decode_ref,
                                                   paged_decode_split_ref,
+                                                  paged_insert_decode_ref,
                                                   paged_insert_ref)
 from repro_torch.kernels.prefix_prefill.ops import prefix_prefill_op
 from repro_torch.kernels.prefix_prefill.ref import prefix_prefill_ref
@@ -364,6 +368,119 @@ def test_paged_insert_kernel_is_byte_exact(cuda, dtype):
     paged_insert_ref(k2, v2, kn, vn, pidx, off)
     torch.cuda.synchronize()
     assert torch.equal(kp, k2) and torch.equal(v2, vp)
+
+
+def _insert_decode_inputs(rng, dev, dtype, B, H, Hkv, hd, page, pps, lens,
+                          new_dtype=None):
+    """q, new K/V rows, pools and a permuted table for the fused op; table
+    slots past each live length point at trash page 0 (large values)."""
+    pages = 1 + B * pps
+    q = _t(rng, dev, dtype, B, H, hd)
+    kn = _t(rng, dev, new_dtype or dtype, B, Hkv, hd)
+    vn = _t(rng, dev, new_dtype or dtype, B, Hkv, hd)
+    kp = _t(rng, dev, dtype, pages, page, Hkv, hd)
+    vp = _t(rng, dev, dtype, pages, page, Hkv, hd)
+    kp[0], vp[0] = 50.0, -50.0
+    table = (1 + rng.permutation(B * pps)).reshape(B, pps).astype(np.int32)
+    for b, n in enumerate(lens):
+        table[b, -(-n // page):] = 0
+    return (q, kn, vn, kp, vp, torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _insert_decode_check(args, dtype, live=None):
+    """The fused kernel against its plain version on copies of the same
+    pools: output within tolerance on live rows, pools byte-equal. Counts
+    one launch of each op. Returns the kernel's output and pools."""
+    q, kn, vn, kp, vp, table, lens = args
+    kp2, vp2 = kp.clone(), vp.clone()
+    before = tk.launch_counts()
+    got = paged_insert_decode_op(q, kn, vn, kp, vp, table, lens)
+    after = tk.launch_counts()
+    assert after["paged_decode"] == before["paged_decode"] + 1
+    assert after["paged_insert"] == before["paged_insert"] + 1
+    want = paged_insert_decode_ref(q, kn, vn, kp2, vp2, table, lens)
+    live = list(range(q.shape[0])) if live is None else live
+    _close(got[live], want[live], dtype)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    return got, kp, vp
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_paged_insert_decode_kernel_head_dims(cuda, hd, dtype):
+    """The fused kernel at every head dim, with splits of one page (many
+    splits, most of them not the owner) and writes at row 0 of a page,
+    mid page and the last row of a full table."""
+    rng = np.random.default_rng(20 + hd)
+    B, H, Hkv, page, pps = 4, 8, 2, 16, 6
+    lens = [1, 17, 40, pps * page]
+    _insert_decode_check(_insert_decode_inputs(
+        rng, cuda, dtype, B, H, Hkv, hd, page, pps, lens), dtype)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_SERVE_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_insert_decode_kernel_serve_shapes(cuda, dtype, case):
+    """yi-6b widths at the serve phase's tables (lens = 0 writes nothing and
+    gives 0); the output equals the decode-only kernel's over the pools
+    the fused call left, bit for bit; two identical calls give identical
+    bits on live rows; f32 new rows into bf16 pools."""
+    lens = DECODE_SERVE_CASES[case]
+    for new_dtype in ((None, torch.float32) if dtype == torch.bfloat16
+                      else (None,)):
+        args = _insert_decode_inputs(np.random.default_rng(21), cuda, dtype,
+                                     len(lens), 32, 4, 128, 16, 128, lens,
+                                     new_dtype)
+        live = [b for b, n in enumerate(lens) if n > 0]
+        got, kp, vp = _insert_decode_check(args, dtype, live)
+        q, kn, vn, _, _, table, lens_t = args
+        assert torch.equal(got, paged_decode_op(q, kp, vp, table, lens_t))
+        again = paged_insert_decode_op(q, kn, vn, kp, vp, table, lens_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got[live], again[live])
+        for b, n in enumerate(lens):
+            if n == 0:
+                assert torch.count_nonzero(got[b]) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_insert_decode_kernel_attends_the_new_row(cuda, dtype):
+    """Poison: the target rows hold a large finite K (and V) before the
+    call, so a kernel that attended over the stale row instead of the new
+    one would put most of the weight on it and fail by far."""
+    rng = np.random.default_rng(22)
+    lens = [33, 1, 128, 77, 16]
+    q, kn, vn, kp, vp, table, lens_t = _insert_decode_inputs(
+        rng, cuda, dtype, len(lens), 16, 4, 128, 16, 8, lens)
+    poison_k = torch.full_like(kn, 200.0)
+    insert_at_lens(kp, vp, poison_k, -poison_k, table, lens_t)
+    stale = paged_decode_ref(q, kp, vp, table, lens_t)   # over the poison
+    got, _, _ = _insert_decode_check((q, kn, vn, kp, vp, table, lens_t),
+                                     dtype)
+    assert (got.float() - stale.float()).abs().max() > 10.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (B, H, Hkv, hd, page, pps, lens)
+    (3, 4, 4, 64, 8, 8, [64, 9, 2]),
+    (2, 32, 2, 128, 32, 3, [96, 33]),
+    (5, 6, 2, 32, 16, 40, [640, 1, 301, 17, 32]),
+])
+def test_paged_insert_decode_kernel_groups_and_pages(cuda, shape, dtype):
+    """Query-head groups of 1, 3 and 16, pages of 8..32 rows, softcap."""
+    B, H, Hkv, hd, page, pps, lens = shape
+    args = _insert_decode_inputs(np.random.default_rng(23), cuda, dtype, B,
+                                 H, Hkv, hd, page, pps, lens)
+    q, kn, vn, kp, vp, table, lens_t = args
+    kp2, vp2 = kp.clone(), vp.clone()
+    got = paged_insert_decode_op(q, kn, vn, kp, vp, table, lens_t,
+                                 softcap=5.0)
+    want = paged_insert_decode_ref(q, kn, vn, kp2, vp2, table, lens_t,
+                                   softcap=5.0)
+    _close(got, want, dtype)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
 
 
 # ssd_scan: f32 as the JAX sweep (tests/test_kernels.py:237); in bf16 both

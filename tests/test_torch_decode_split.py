@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.kernels.paged_decode.kernel import paged_decode as jx_decode
+from repro.kernels.paged_decode.kernel import paged_insert as jx_insert
 from repro.kernels.paged_decode.ref import paged_decode_ref as jx_decode_ref
 from repro_torch.kernels.build import require_aligned
 from repro_torch.kernels.paged_decode.kernel import DEC_ROWS, decode_split
@@ -87,6 +88,50 @@ def test_split_merge_matches_jax_oracle_and_plain_version(case):
     np.testing.assert_allclose(got.numpy(),
                                paged_decode_ref(*t, softcap=cap).numpy(),
                                **TOLS["float32"])
+
+
+@functools.lru_cache(maxsize=None)
+def _insert_case(name: str, dtype: str):
+    """Case `name` with new K/V rows (f32, rounded to `dtype`): (torch
+    inputs, new rows, and the JAX paged_insert at position lens - 1
+    followed by the JAX paged_decode, both in interpret mode, as f32 numpy
+    (out, k pool, v pool))."""
+    t, _, cap = _case(name, dtype)
+    rng = np.random.default_rng(100 + sorted(CASES).index(name))
+    kn, vn = (rng.standard_normal((B, HKV, HD)).astype(np.float32)
+              for _ in range(2))
+    q, kp, vp, table, lens = (x.numpy() if x.dtype != torch.bfloat16
+                              else x.float().numpy() for x in t)
+    wp = np.minimum(lens, FULL) - 1
+    jd = JDT[dtype]
+    jk, jv = jx_insert(jnp.asarray(kp).astype(jd), jnp.asarray(vp).astype(jd),
+                       jnp.asarray(kn).astype(jd), jnp.asarray(vn).astype(jd),
+                       jnp.asarray(table[np.arange(B), wp // PAGE]),
+                       jnp.asarray(wp % PAGE), interpret=True)
+    out = jx_decode(jnp.asarray(q).astype(jd), jk, jv, jnp.asarray(table),
+                    jnp.asarray(lens), softcap=cap, interpret=True)
+    new = tuple(torch.from_numpy(x).to(TDT[dtype]) for x in (kn, vn))
+    return t, new, cap, tuple(np.asarray(x, np.float32)
+                              for x in (out, jk, jv))
+
+
+@pytest.mark.parametrize("case", sorted(set(CASES) - {"zero_len"}))
+@pytest.mark.parametrize("split_pages", [1, 2, 3, PPS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_merge_with_owner_insert_matches_jax(dtype, split_pages, case):
+    """The insert instance's algorithm: the split that holds position
+    lens - 1 writes the new row before it reads its pages; the result is
+    the JAX insert followed by the JAX kernel (output within tolerance,
+    pools byte-equal), for every split size."""
+    t, (kn, vn), cap, (want, jk, jv) = _insert_case(case, dtype)
+    q, kp, vp, table, lens = t
+    kp, vp = kp.clone(), vp.clone()
+    got = paged_decode_split_ref(q, kp, vp, table, lens,
+                                 split_pages=split_pages, softcap=cap,
+                                 k_new=kn, v_new=vn)
+    np.testing.assert_allclose(got.float().numpy(), want, **TOLS[dtype])
+    np.testing.assert_array_equal(kp.float().numpy(), jk)
+    np.testing.assert_array_equal(vp.float().numpy(), jv)
 
 
 def test_split_merge_zero_length_gives_zero():
