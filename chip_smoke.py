@@ -24,7 +24,14 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    decode), both pools byte-equal, timed in turns with `paged_decode`
    alone on the same pools, so its row shows the insert's marginal cost;
    the standalone `paged_insert` also runs at B=1, the card's launch
-   floor under the same timing.
+   floor under the same timing. Then the head dims past the first
+   instances: gemma3-1b's (4/1 heads of hd 256) `flash_prefill` at S=1024
+   under the 512-token window and causal and at S=512, its slab decode
+   (the fused insert + decode over a 2048-slot slab viewed as pages, and
+   `paged_decode` over a 512-slot ring past the window), the standalone
+   insert into the ring and `prefix_prefill`; zamba2-7b's attention (32/32
+   heads of hd 112, on the 128 instance) in `flash_prefill`,
+   `paged_decode` and `prefix_prefill`.
 3. serve yi-6b: `DisaggCluster` at full yi-6b width (random f32 weights
    from a seed, shared by both engines) serves a trace of 8 requests, some
    sharing a system prompt, with the prefix cache and 512-token chunked
@@ -54,6 +61,22 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    (`MAMBA_BOUNDS`); (c) for information, a `torch.profiler` trace of one
    1536-token prefill and one batch-8 decode step: the device's busy time,
    its idle share and the kernels that take most time.
+7. serve gemma3-1b: the same trace through `DisaggCluster` at full
+   gemma3-1b width (26 layers, 5 local : 1 global, window 512, hd 256) on
+   the transformer's dense slab: exact-length prefill (`flash_prefill` in
+   every layer; local caches ring-packed past the window, padded below
+   it), slot writes, and the slab decode (`paged_insert` + `paged_decode`
+   on the 22 ring layers, the fused kernel on the 4 global ones). Fails
+   unless the launch counts and the migrated bytes (`kv_bytes`) are what
+   the path must give; prints the real blob size beside them.
+8. check gemma3-1b: (a) as 4(a) on gemma3-1b-smoke, and on yi-6b-smoke
+   with `paged=False` (the bucketed slab prefill); (b) at full width,
+   teacher-forced over a 700-token prompt and 8 decode steps on the slab,
+   bf16 logits through the kernels against the plain versions within
+   `GEMMA_LOGIT_BOUND`, at the serving weights (f32 printed beside them);
+   (c) for information, a `torch.profiler` trace of one batch-8 slab
+   decode step, which must hold one split kernel a layer and one
+   standalone insert a ring layer.
 
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
@@ -87,16 +110,35 @@ SOURCES = {
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:85"),
 }
-# the main path each kernel serves (its launches are read from that run)
-PATH_OF = {"paged_decode": "yi-6b", "paged_insert": "yi-6b",
-           "prefix_prefill": "yi-6b", "flash_prefill": "yi-6b",
-           "ssd_scan": "mamba2-2.7b"}
+# the kernels each served path runs (their launches are read from its run)
+PATHS = {"yi-6b": ("paged_decode", "paged_insert", "prefix_prefill",
+                   "flash_prefill"),
+         "mamba2-2.7b": ("ssd_scan",),
+         "gemma3-1b": ("flash_prefill", "paged_decode", "paged_insert")}
+# the summary line's rows: (name, kernel, path, kernel-phase row)
+SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
+           ("paged_insert", "paged_insert", "yi-6b", "paged_insert"),
+           ("prefix_prefill", "prefix_prefill", "yi-6b", "prefix_prefill"),
+           ("flash_prefill", "flash_prefill", "yi-6b", "flash_prefill"),
+           ("ssd_scan", "ssd_scan", "mamba2-2.7b", "ssd_scan"),
+           ("flash_prefill@gemma3-1b", "flash_prefill", "gemma3-1b",
+            "flash_prefill_gemma3_s1024_w512"),
+           ("paged_decode@gemma3-1b", "paged_decode", "gemma3-1b",
+            "slab_ring_decode_gemma3_b8"),
+           ("paged_insert@gemma3-1b", "paged_insert", "gemma3-1b",
+            "paged_insert_gemma3_b8")]
 # whole-model bf16 check: kernel-path logits within this fraction of the
 # plain path's largest |logit|. Both paths run the same bf16 matmuls; they
 # differ only in where attention rounds to bf16 and in the f32 summation
 # order, which drifts through 32 layers. A wrong kernel gives O(1)
 # relative differences.
 LOGIT_BOUND = 0.1
+# the same check on gemma3-1b's slab path (26 layers, bf16), by the same
+# argument: both paths run the same bf16 matmuls and differ only where
+# attention rounds to bf16 and in the f32 summation order; qk-norm holds
+# the attention scores near unit scale at the JAX init, so no rescaling of
+# the projections is needed to keep softmax from a hard argmax.
+GEMMA_LOGIT_BOUND = 0.1
 # ssd_scan against its plain version: f32 as the JAX sweep
 # (tests/test_kernels.py:237); in bf16 both read the same bf16 inputs and
 # compute in f32, so y differs by about one bf16 rounding
@@ -192,36 +234,51 @@ def sdpa(q, k, v, mask=None, causal=False):
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def kernel_phase(cfg, dtypes):
-    import torch
-    from repro_torch.kernels.flash_prefill import kernel as flash_kernel
-    from repro_torch.kernels.flash_prefill.kernel import (
-        flash_heads_per_block, flash_prefill)
-    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
-    from repro_torch.kernels.paged_decode.kernel import (
-        decode_split, paged_decode, paged_insert, paged_insert_decode)
-    from repro_torch.kernels.paged_decode.ref import (
-        paged_decode_ref, paged_insert_decode_ref, paged_insert_ref)
-    from repro_torch.kernels.prefix_prefill.kernel import prefix_prefill
-    from repro_torch.kernels.prefix_prefill.ref import prefix_prefill_ref
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
 
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    page = 16
-    dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+class Rows:
+    """Kernel rows at one model's attention shapes (H query heads over Hkv
+    kv heads of head dim hd) on the card, from one seeded generator: each
+    method holds a kernel against its plain version on the same inputs and
+    times kernel, plain version and library yardstick. Returns the row."""
 
-    def decode_row(dtype, es, B, pps, lens, trash):
+    def __init__(self, H, Hkv, hd, seed, page=16):
+        import torch
+        self.H, self.Hkv, self.hd, self.page = H, Hkv, hd, page
+        self.dev = "cuda"
+        self.gen = torch.Generator(device=self.dev).manual_seed(seed)
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(self, *shape, dtype):
+        import torch
+        return torch.randn(shape, generator=self.gen, device=self.dev) \
+            .to(dtype)
+
+    def randperm(self, n):
+        import torch
+        return torch.randperm(n, generator=self.gen, device=self.dev)
+
+    def heads(self):
+        return f"H={self.H} Hkv={self.Hkv} hd={self.hd}"
+
+    def decode(self, dtype, B, pps, lens, trash):
         """paged_decode over B tables of `pps` pages, timed on enough pool
         copies that each call reads its K/V cold from HBM, as a decode
         step's layer does. With `trash`, table slots past each live length
         point at page 0, as the engine leaves them."""
+        import torch
+        from repro_torch.kernels.paged_decode.kernel import (decode_split,
+                                                             paged_decode)
+        from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+        H, Hkv, hd, page, dev = self.H, self.Hkv, self.hd, self.page, \
+            self.dev
+        dn = dtype_name(dtype)
+        es = torch.empty((), dtype=dtype).element_size()
         num_pages = B * pps + 1
-        q = randn(B, H, hd, dtype=dtype)
-        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        q = self.randn(B, H, hd, dtype=dtype)
+        perm = self.randperm(num_pages - 1) + 1
         table = perm.reshape(B, pps).to(torch.int32)
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         if trash:
@@ -231,8 +288,8 @@ def kernel_phase(cfg, dtypes):
         live_pages = int(((lens + page - 1) // page).sum())
         nbytes = (2 * B * H * hd * es + 2 * n_ctx * Hkv * hd * es
                   + live_pages * 4 + B * 4)
-        pools = [(randn(num_pages, page, Hkv, hd, dtype=dtype),
-                  randn(num_pages, page, Hkv, hd, dtype=dtype))
+        pools = [(self.randn(num_pages, page, Hkv, hd, dtype=dtype),
+                  self.randn(num_pages, page, Hkv, hd, dtype=dtype))
                  for _ in range(cold_copies(nbytes))]
         kp, vp = pools[0]
         out = paged_decode(q, kp, vp, table, lens)
@@ -247,10 +304,10 @@ def kernel_phase(cfg, dtypes):
             ks = kp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
             vs = vp[table.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
             return sdpa(q[:, :, None], ks, vs, mask=mask)
-        per, n_split = decode_split(B, Hkv, pps, page, sms)
+        per, n_split = decode_split(B, Hkv, pps, page, self.sms)
         return dict(
-            shape=f"B={B} ctx<={int(lens.max())} pps={pps} page={page} H={H} "
-                  f"Hkv={Hkv} hd={hd}",
+            shape=f"B={B} ctx<={int(lens.max())} pps={pps} page={page} "
+                  f"{self.heads()}",
             max_abs_err=err, ok=ok and bool(torch.equal(out, again)),
             repeat_identical=bool(torch.equal(out, again)),
             ms=time_ms([lambda kp=kp, vp=vp: paged_decode(q, kp, vp, table,
@@ -264,7 +321,7 @@ def kernel_phase(cfg, dtypes):
             bytes=nbytes, flops=4 * n_ctx * H * hd,
             split_pages=per, n_split=n_split, blocks=B * Hkv * n_split)
 
-    def insert_decode_row(dtype, es, B, pps, lens):
+    def insert_decode(self, dtype, B, pps, lens):
         """The fused insert-and-decode kernel over B tables of `pps` pages
         (slots past each live length on trash page 0), on enough pool copies
         that each call reads its K/V cold, beside `paged_decode` alone on
@@ -273,11 +330,20 @@ def kernel_phase(cfg, dtypes):
         version's, and the decode-only kernel over the pools the fused call
         left must give the same bits. Bound: the decode's bytes plus the
         new rows read and written."""
+        import torch
+        from repro_torch.kernels.paged_decode.kernel import (
+            decode_split, paged_decode, paged_insert_decode)
+        from repro_torch.kernels.paged_decode.ref import \
+            paged_insert_decode_ref
+        H, Hkv, hd, page, dev = self.H, self.Hkv, self.hd, self.page, \
+            self.dev
+        dn = dtype_name(dtype)
+        es = torch.empty((), dtype=dtype).element_size()
         num_pages = B * pps + 1
-        q = randn(B, H, hd, dtype=dtype)
-        kn = randn(B, Hkv, hd, dtype=dtype)
-        vn = randn(B, Hkv, hd, dtype=dtype)
-        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        q = self.randn(B, H, hd, dtype=dtype)
+        kn = self.randn(B, Hkv, hd, dtype=dtype)
+        vn = self.randn(B, Hkv, hd, dtype=dtype)
+        perm = self.randperm(num_pages - 1) + 1
         table = perm.reshape(B, pps).to(torch.int32)
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         slot = torch.arange(pps, device=dev)[None]
@@ -287,8 +353,8 @@ def kernel_phase(cfg, dtypes):
         dec_bytes = (2 * B * H * hd * es + 2 * n_ctx * Hkv * hd * es
                      + live_pages * 4 + B * 4)
         nbytes = dec_bytes + 4 * B * Hkv * hd * es
-        pools = [(randn(num_pages, page, Hkv, hd, dtype=dtype),
-                  randn(num_pages, page, Hkv, hd, dtype=dtype))
+        pools = [(self.randn(num_pages, page, Hkv, hd, dtype=dtype),
+                  self.randn(num_pages, page, Hkv, hd, dtype=dtype))
                  for _ in range(cold_copies(nbytes))]
         kp, vp = pools[0]
         k2, v2 = kp.clone(), vp.clone()
@@ -321,10 +387,10 @@ def kernel_phase(cfg, dtypes):
                for kp, vp in pools]
         turns = [time_ms(f, iters=50) for f in (fused, dec, fused, dec)]
         ms, dec_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
-        per, n_split = decode_split(B, Hkv, pps, page, sms)
+        per, n_split = decode_split(B, Hkv, pps, page, self.sms)
         return dict(
-            shape=f"B={B} ctx<={int(lens.max())} pps={pps} page={page} H={H} "
-                  f"Hkv={Hkv} hd={hd}",
+            shape=f"B={B} ctx<={int(lens.max())} pps={pps} page={page} "
+                  f"{self.heads()}",
             max_abs_err=err, ok=ok and pools_equal and same and as_decode,
             pools_byte_equal=pools_equal, repeat_identical=same,
             equals_decode_alone=as_decode,
@@ -339,13 +405,19 @@ def kernel_phase(cfg, dtypes):
             bytes=nbytes, decode_bytes=dec_bytes, flops=4 * n_ctx * H * hd,
             split_pages=per, n_split=n_split, blocks=B * Hkv * n_split)
 
-    def insert_row(dtype, es, B, kp, vp, table):
+    def insert(self, dtype, B, kp, vp, table):
         """The standalone paged_insert: one token for each of B sequences
-        into distinct pages, byte-exact against the plain version."""
-        kn = randn(B, Hkv, hd, dtype=dtype)
-        vn = randn(B, Hkv, hd, dtype=dtype)
+        into distinct pages (slot 5 of each table row), byte-exact against
+        the plain version."""
+        import torch
+        from repro_torch.kernels.paged_decode.kernel import paged_insert
+        from repro_torch.kernels.paged_decode.ref import paged_insert_ref
+        Hkv, hd, page = self.Hkv, self.hd, kp.shape[1]
+        es = torch.empty((), dtype=dtype).element_size()
+        kn = self.randn(B, Hkv, hd, dtype=dtype)
+        vn = self.randn(B, Hkv, hd, dtype=dtype)
         pidx = table[:B, 5].contiguous()                   # distinct pages
-        off = torch.arange(B, dtype=torch.int32, device=dev) % page
+        off = torch.arange(B, dtype=torch.int32, device=self.dev) % page
         k1, v1 = kp.clone(), vp.clone()
         k2, v2 = kp.clone(), vp.clone()
         paged_insert(k1, v1, kn, vn, pidx, off)
@@ -367,15 +439,22 @@ def kernel_phase(cfg, dtypes):
             library_ms=time_ms(lib_insert), library="index_put_ (K and V)",
             bytes=4 * B * Hkv * hd * es + 2 * B * 4, flops=0)
 
-    def prefix_row(dtype, es, Sq, P):
+    def prefix(self, dtype, Sq, P):
         """prefix_prefill: an Sq-token suffix over a P-token prefix."""
+        import torch
+        from repro_torch.kernels.prefix_prefill.kernel import prefix_prefill
+        from repro_torch.kernels.prefix_prefill.ref import prefix_prefill_ref
+        H, Hkv, hd, page, dev = self.H, self.Hkv, self.hd, self.page, \
+            self.dev
+        dn = dtype_name(dtype)
+        es = torch.empty((), dtype=dtype).element_size()
         npp = P // page
-        qs = randn(1, H, Sq, hd, dtype=dtype)
-        ksf = randn(1, Hkv, Sq, hd, dtype=dtype)
-        vsf = randn(1, Hkv, Sq, hd, dtype=dtype)
-        kp = randn(npp + 1, page, Hkv, hd, dtype=dtype)
-        vp = randn(npp + 1, page, Hkv, hd, dtype=dtype)
-        perm = torch.randperm(npp, generator=gen, device=dev) + 1
+        qs = self.randn(1, H, Sq, hd, dtype=dtype)
+        ksf = self.randn(1, Hkv, Sq, hd, dtype=dtype)
+        vsf = self.randn(1, Hkv, Sq, hd, dtype=dtype)
+        kp = self.randn(npp + 1, page, Hkv, hd, dtype=dtype)
+        vp = self.randn(npp + 1, page, Hkv, hd, dtype=dtype)
+        perm = self.randperm(npp) + 1
         ptab = perm[None].to(torch.int32)
         plens = torch.tensor([P], dtype=torch.int32, device=dev)
         out = prefix_prefill(qs, ksf, vsf, kp, vp, ptab, plens)
@@ -393,7 +472,7 @@ def kernel_phase(cfg, dtypes):
             return sdpa(qs, torch.cat([kk, ksf], 2), torch.cat([vv, vsf], 2),
                         mask=pmask)
         return dict(
-            shape=f"Sq={Sq} prefix={P} page={page} H={H} Hkv={Hkv} hd={hd}",
+            shape=f"Sq={Sq} prefix={P} page={page} {self.heads()}",
             max_abs_err=err, ok=ok,
             ms=time_ms(lambda: prefix_prefill(qs, ksf, vsf, kp, vp, ptab,
                                               plens)),
@@ -405,116 +484,291 @@ def kernel_phase(cfg, dtypes):
                    + 2 * P * Hkv * hd * es + npp * 4 + 4),
             flops=4 * pairs * H * hd)
 
-    def flash_row(dtype, es, S):
-        """flash_prefill: an S-token causal prefill from scratch. In bf16
-        also the time with one and with two query heads a block, forced by
+    def flash(self, dtype, S, window=0):
+        """flash_prefill: an S-token causal prefill from scratch, under a
+        sliding window where `window` > 0. In bf16 also the time with one
+        and (where the kernel takes it) two query heads a block, forced by
         replacing `flash_heads_per_block` for the timing (the wrapper picks
         one from the shapes)."""
-        qf = randn(1, H, S, hd, dtype=dtype)
-        kf = randn(1, Hkv, S, hd, dtype=dtype)
-        vf = randn(1, Hkv, S, hd, dtype=dtype)
-        out = flash_prefill(qf, kf, vf, causal=True)
-        again = flash_prefill(qf, kf, vf, causal=True)
-        ref = flash_prefill_ref(qf, kf, vf, causal=True)
+        import torch
+        from repro_torch.kernels.flash_prefill import kernel as flash_kernel
+        from repro_torch.kernels.flash_prefill.kernel import (
+            flash_heads_per_block, flash_prefill)
+        from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+        H, Hkv, hd = self.H, self.Hkv, self.hd
+        dn = dtype_name(dtype)
+        es = torch.empty((), dtype=dtype).element_size()
+        qf = self.randn(1, H, S, hd, dtype=dtype)
+        kf = self.randn(1, Hkv, S, hd, dtype=dtype)
+        vf = self.randn(1, Hkv, S, hd, dtype=dtype)
+        kw = dict(causal=True, window=window)
+        out = flash_prefill(qf, kf, vf, **kw)
+        again = flash_prefill(qf, kf, vf, **kw)
+        ref = flash_prefill_ref(qf, kf, vf, **kw)
         torch.cuda.synchronize()
         err, ok = max_err(out, ref, dn)
         same = bool(torch.equal(out, again))
+        pos = torch.arange(S, device=self.dev)
+        if window:
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+
+            def lib():
+                return sdpa(qf, kf, vf, mask=band)
+            library = "scaled_dot_product_attention(band mask)"
+        else:
+            def lib():
+                return sdpa(qf, kf, vf, causal=True)
+            library = "scaled_dot_product_attention(is_causal=True)"
+        pairs = sum(min(i + 1, window or S) for i in range(S))
         r = dict(
-            shape=f"S={S} causal H={H} Hkv={Hkv} hd={hd}",
+            shape=f"S={S} causal{f' window={window}' if window else ''} "
+                  f"{self.heads()}",
             max_abs_err=err, ok=ok and same, repeat_identical=same,
-            ms=time_ms(lambda: flash_prefill(qf, kf, vf, causal=True)),
-            plain_ms=time_ms(lambda: flash_prefill_ref(qf, kf, vf,
-                                                       causal=True),
+            ms=time_ms(lambda: flash_prefill(qf, kf, vf, **kw)),
+            plain_ms=time_ms(lambda: flash_prefill_ref(qf, kf, vf, **kw),
                              iters=5),
-            library_ms=time_ms(lambda: sdpa(qf, kf, vf, causal=True)),
-            library="scaled_dot_product_attention(is_causal=True)",
+            library_ms=time_ms(lib), library=library,
             bytes=(2 * H * S * hd + 2 * Hkv * S * hd) * es,
-            flops=4 * (S * (S + 1) // 2) * H * hd,
-            heads_per_block=flash_heads_per_block(1, H, Hkv, S, sms))
+            flops=4 * pairs * H * hd,
+            heads_per_block=flash_heads_per_block(1, H, Hkv, S, self.sms,
+                                                  hd))
         if dtype == torch.bfloat16:
             chosen = flash_kernel.flash_heads_per_block
+            two = hd <= 128 and (H // Hkv) % 2 == 0
             try:
-                for qh in (1, 2):
+                for qh in ((1, 2) if two else (1,)):
                     flash_kernel.flash_heads_per_block = \
                         lambda *shape, qh=qh, **_: qh
                     r[f"ms_heads_per_block_{qh}"] = time_ms(
-                        lambda: flash_prefill(qf, kf, vf, causal=True))
+                        lambda: flash_prefill(qf, kf, vf, **kw))
             finally:
                 flash_kernel.flash_heads_per_block = chosen
         return r
 
+    def slab_decode(self, dtype, B, smax, pos, ring):
+        """The slab decode attention of `models/transformer.py::
+        attn_decode` over a (B, smax, Hkv, hd) slab layer viewed as pages
+        (`models/attention.py::slab_pages`), on enough slab copies that
+        each call reads its K/V cold. A full slab (`ring=False`): the fused
+        insert + decode of the new row at slot pos = lens - 1, both slabs
+        byte-equal to the plain version's after it. A ring (pos past the
+        window): `paged_decode` alone over all smax slots, as the ring
+        layers run it after their standalone insert (its own row). Library:
+        SDPA over the slab itself (no gather), after `index_put_` of the
+        new rows for the full slab."""
+        import torch
+        from repro_torch.kernels.paged_decode.kernel import (
+            decode_split, paged_decode, paged_insert_decode)
+        from repro_torch.kernels.paged_decode.ref import (
+            paged_decode_ref, paged_insert_decode_ref)
+        from repro_torch.models.attention import slab_pages
+        H, Hkv, hd, dev = self.H, self.Hkv, self.hd, self.dev
+        dn = dtype_name(dtype)
+        es = torch.empty((), dtype=dtype).element_size()
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        lens = torch.clamp(pos + 1, max=smax)
+        q = self.randn(B, H, hd, dtype=dtype)
+        kn = self.randn(B, Hkv, hd, dtype=dtype)
+        vn = self.randn(B, Hkv, hd, dtype=dtype)
+        n_ctx = int(lens.sum())
+        nbytes = 2 * B * H * hd * es + 2 * n_ctx * Hkv * hd * es + B * 4
+        if not ring:
+            nbytes += 4 * B * Hkv * hd * es
+        slabs = [(self.randn(B, smax, Hkv, hd, dtype=dtype),
+                  self.randn(B, smax, Hkv, hd, dtype=dtype))
+                 for _ in range(cold_copies(nbytes))]
+        views = [slab_pages(kc, vc) for kc, vc in slabs]
+        kp, vp, table = views[0]
+        page = kp.shape[1]
+        if ring:
+            def kern(kp, vp):
+                return paged_decode(q, kp, vp, table, lens)
+
+            def plain(kp, vp):
+                return paged_decode_ref(q, kp, vp, table, lens)
+        else:
+            def kern(kp, vp):
+                return paged_insert_decode(q, kn, vn, kp, vp, table, lens)
+
+            def plain(kp, vp):
+                return paged_insert_decode_ref(q, kn, vn, kp, vp, table,
+                                               lens)
+        k2, v2 = kp.clone(), vp.clone()
+        out = kern(kp, vp)
+        again = kern(kp, vp)
+        ref = plain(k2, v2)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, dn)
+        same = bool(torch.equal(out, again))
+        pools_equal = bool(torch.equal(kp, k2) and torch.equal(vp, v2))
+        del k2, v2
+        slot = torch.arange(smax, device=dev)
+        mask = (slot[None, :] < lens[:, None])[:, None, None, :]
+        rows = torch.arange(B, device=dev)
+        wp = lens.long() - 1
+
+        def lib(kc, vc):
+            if not ring:
+                kc.index_put_((rows, wp), kn)
+                vc.index_put_((rows, wp), vn)
+            return sdpa(q[:, :, None], kc.transpose(1, 2),
+                        vc.transpose(1, 2), mask=mask)
+        per, n_split = decode_split(B, Hkv, smax // page, page, self.sms)
+        return dict(
+            shape=f"B={B} slab={smax}{' ring' if ring else ''} "
+                  f"pos<={int(pos.max())} ctx<={int(lens.max())} "
+                  f"page={page} {self.heads()}",
+            max_abs_err=err, ok=ok and same and pools_equal,
+            repeat_identical=same, pools_byte_equal=pools_equal,
+            ms=time_ms([lambda kp=kp, vp=vp: kern(kp, vp)
+                        for kp, vp, _ in views]),
+            plain_ms=time_ms(lambda: plain(kp, vp)),
+            library_ms=time_ms([lambda kc=kc, vc=vc: lib(kc, vc)
+                                for kc, vc in slabs]),
+            library=("" if ring else "index_put_ (K and V) + ")
+            + "scaled_dot_product_attention over the slab",
+            bytes=nbytes, flops=4 * n_ctx * H * hd,
+            split_pages=per, n_split=n_split, blocks=B * Hkv * n_split)
+
+
+def finish_rows(rows, dn):
+    """Bound and achieved rate of each row, one log line each; raise if any
+    row disagrees with its plain version."""
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], dn)
+        r["achieved"] = achieved(r)
+        split = (f" n_split={r['n_split']} ({r['split_pages']} pages, "
+                 f"{r['blocks']} blocks)" if "n_split" in r else "")
+        if "heads_per_block" in r:
+            split += f" heads_per_block={r['heads_per_block']}" + "".join(
+                f" ms[{q}]={r[f'ms_heads_per_block_{q}']:.4f}"
+                for q in (1, 2) if f"ms_heads_per_block_{q}" in r)
+        if "repeat_identical" in r:
+            split += f" repeat_identical={r['repeat_identical']}"
+        if "marginal_ms" in r:
+            split += (f" decode_alone_ms={r['decode_ms']:.4f} "
+                      f"insert_marginal_ms={r['marginal_ms']:.4f} "
+                      f"pools_byte_equal={r['pools_byte_equal']} "
+                      f"equals_decode_alone={r['equals_decode_alone']}")
+        elif "pools_byte_equal" in r:
+            split += f" pools_byte_equal={r['pools_byte_equal']}"
+        log(f"kernel {name:28s} {dn:8s} {r['shape']}: "
+            f"max_abs_err={r['max_abs_err']:.3e} "
+            f"{'ok' if r['ok'] else 'MISMATCH'} "
+            f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"achieved={r['achieved']}{split}")
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"kernel phase: {bad} disagree with their plain "
+                         f"versions in {dn}")
+
+
+def kernel_phase(cfg, dtypes):
+    """The four attention kernels at yi-6b's heads (32/4, hd 128): the
+    PERF shapes and the serve phase's own."""
+    import torch
+    R = Rows(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 1234)
+    page = R.page
     results = {}
     for dtype in dtypes:
-        dn = str(dtype).split(".")[-1]
-        es = torch.empty((), dtype=dtype).element_size()
+        dn = dtype_name(dtype)
         rows = {}
 
         # -- paged_decode: B=8, context 1024 (ragged), page 16 -------------
         B, ctx = 8, 1024
-        rows["paged_decode"] = decode_row(
-            dtype, es, B, ctx // page, [ctx - 37 * i for i in range(B)],
+        rows["paged_decode"] = R.decode(
+            dtype, B, ctx // page, [ctx - 37 * i for i in range(B)],
             trash=False)
         # the serve phase's shapes: B=8 tables of 128 pages, and B=1
-        rows["paged_decode_serve_b8"] = decode_row(
-            dtype, es, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33],
+        rows["paged_decode_serve_b8"] = R.decode(
+            dtype, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33],
             trash=True)
-        rows["paged_decode_serve_b1"] = decode_row(
-            dtype, es, 1, 128, [1500], trash=True)
-        table = torch.randperm(B * ctx // page, generator=gen, device=dev) \
-            .reshape(B, ctx // page).to(torch.int32) + 1
-        kp = randn(B * ctx // page + 1, page, Hkv, hd, dtype=dtype)
-        vp = randn(B * ctx // page + 1, page, Hkv, hd, dtype=dtype)
+        rows["paged_decode_serve_b1"] = R.decode(dtype, 1, 128, [1500],
+                                                 trash=True)
+        table = R.randperm(B * ctx // page).reshape(B, ctx // page) \
+            .to(torch.int32) + 1
+        kp = R.randn(B * ctx // page + 1, page, R.Hkv, R.hd, dtype=dtype)
+        vp = R.randn(B * ctx // page + 1, page, R.Hkv, R.hd, dtype=dtype)
 
         # -- paged_insert: one token per sequence, byte-exact; at B=1 the
         #    card's launch floor under the same timing ----------------------
-        rows["paged_insert"] = insert_row(dtype, es, B, kp, vp, table)
-        rows["paged_insert_b1"] = insert_row(dtype, es, 1, kp, vp, table)
+        rows["paged_insert"] = R.insert(dtype, B, kp, vp, table)
+        rows["paged_insert_b1"] = R.insert(dtype, 1, kp, vp, table)
         del kp, vp
         # -- the decode path's fused insert + decode, at the serve shapes --
-        rows["paged_insert_decode_serve_b8"] = insert_decode_row(
-            dtype, es, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33])
-        rows["paged_insert_decode_serve_b1"] = insert_decode_row(
-            dtype, es, 1, 128, [1500])
+        rows["paged_insert_decode_serve_b8"] = R.insert_decode(
+            dtype, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33])
+        rows["paged_insert_decode_serve_b1"] = R.insert_decode(
+            dtype, 1, 128, [1500])
 
         # -- prefix_prefill: a 512-token suffix over a 1024-token prefix -
-        rows["prefix_prefill"] = prefix_row(dtype, es, 512, 1024)
+        rows["prefix_prefill"] = R.prefix(dtype, 512, 1024)
         # the serve phase's chunks: over a 512- and a 384-token prefix
-        rows["prefix_prefill_p512"] = prefix_row(dtype, es, 512, 512)
-        rows["prefix_prefill_p384"] = prefix_row(dtype, es, 512, 384)
+        rows["prefix_prefill_p512"] = R.prefix(dtype, 512, 512)
+        rows["prefix_prefill_p384"] = R.prefix(dtype, 512, 384)
 
         # -- flash_prefill: S=1024 causal, and the serve phase's first
         #    chunks of 512 and 200 tokens -----------------------------------
         for key, S in (("flash_prefill", 1024), ("flash_prefill_s512", 512),
                        ("flash_prefill_s200", 200)):
-            rows[key] = flash_row(dtype, es, S)
-        for name, r in rows.items():
-            r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], dn)
-            r["achieved"] = achieved(r)
-            split = (f" n_split={r['n_split']} ({r['split_pages']} pages, "
-                     f"{r['blocks']} blocks)" if "n_split" in r else "")
-            if "heads_per_block" in r:
-                split += f" heads_per_block={r['heads_per_block']}" + "".join(
-                    f" ms[{q}]={r[f'ms_heads_per_block_{q}']:.4f}"
-                    for q in (1, 2) if f"ms_heads_per_block_{q}" in r)
-            if "repeat_identical" in r:
-                split += f" repeat_identical={r['repeat_identical']}"
-            if "marginal_ms" in r:
-                split += (f" decode_alone_ms={r['decode_ms']:.4f} "
-                          f"insert_marginal_ms={r['marginal_ms']:.4f} "
-                          f"pools_byte_equal={r['pools_byte_equal']} "
-                          f"equals_decode_alone={r['equals_decode_alone']}")
-            log(f"kernel {name:28s} {dn:8s} {r['shape']}: "
-                f"max_abs_err={r['max_abs_err']:.3e} "
-                f"{'ok' if r['ok'] else 'MISMATCH'} "
-                f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={r['library_ms']:.4f} "
-                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-                f"achieved={r['achieved']}{split}")
+            rows[key] = R.flash(dtype, S)
+        finish_rows(rows, dn)
         results[dn] = rows
-        bad = [n for n, r in rows.items() if not r["ok"]]
-        if bad:
-            raise SystemExit(f"kernel phase: {bad} disagree with their plain "
-                             f"versions in {dn}")
+    return results
+
+
+# the gemma3-1b slab decode's lengths: the serve trace's prompts less 1 at
+# the first decode step over a 2048-slot global slab, and positions past
+# the window over a 512-slot ring
+SLAB_POS = [1531, 1099, 902, 639, 516, 299, 199, 32]
+RING_POS = [1531, 1099, 902, 639, 516, 600, 700, 800]
+
+
+def wide_kernel_phase(gcfg, zcfg, dtypes):
+    """The attention kernels at the head dims above 128 (gemma3-1b: 4/1
+    heads of 256) and off the instances (zamba2-7b's attention: 32/32
+    heads of 112, on the 128 instance with 16 padding columns): the
+    gemma3-1b slab path's shapes, and the kernels it does not run at hd
+    256 (prefix_prefill) and at hd 112."""
+    import torch
+    from repro_torch.models.attention import slab_pages
+    G = Rows(gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim, 2345)
+    Z = Rows(zcfg.num_heads, zcfg.num_kv_heads, zcfg.head_dim, 3456)
+    w = gcfg.sliding_window
+    results = {}
+    for dtype in dtypes:
+        dn = dtype_name(dtype)
+        rows = {}
+        # -- gemma3-1b: prefill of a local layer (window 512) and of a
+        #    global one (causal) at S=1024, and a 512-token prompt --------
+        rows["flash_prefill_gemma3_s1024_w512"] = G.flash(dtype, 1024, w)
+        rows["flash_prefill_gemma3_s1024"] = G.flash(dtype, 1024)
+        rows["flash_prefill_gemma3_s512"] = G.flash(dtype, 512)
+        # -- the slab decode: a global layer's fused insert + decode over a
+        #    2048 slab, a ring layer's decode over its 512 ring past the
+        #    window, and the ring layer's standalone insert -----------------
+        rows["slab_decode_gemma3_b8"] = G.slab_decode(dtype, 8, 2048,
+                                                      SLAB_POS, ring=False)
+        rows["slab_ring_decode_gemma3_b8"] = G.slab_decode(
+            dtype, 8, w, RING_POS, ring=True)
+        kc = G.randn(8, w, G.Hkv, G.hd, dtype=dtype)
+        kp, vp, table = slab_pages(kc, G.randn(8, w, G.Hkv, G.hd,
+                                               dtype=dtype))
+        rows["paged_insert_gemma3_b8"] = G.insert(dtype, 8, kp, vp, table)
+        del kc, kp, vp
+        rows["prefix_prefill_gemma3_p512"] = G.prefix(dtype, 512, 512)
+        # -- zamba2-7b's attention shapes, hd 112 --------------------------
+        rows["flash_prefill_zamba2_s1024"] = Z.flash(dtype, 1024)
+        rows["paged_decode_zamba2_b8"] = Z.decode(
+            dtype, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33],
+            trash=True)
+        rows["prefix_prefill_zamba2_p512"] = Z.prefix(dtype, 512, 512)
+        finish_rows(rows, dn)
+        results[dn] = rows
+        torch.cuda.empty_cache()
     return results
 
 
@@ -631,13 +885,23 @@ def serve_phase(cfg, params, **cluster_kw):
     engine, 8 slots, max_len 2048, plus `cluster_kw`); the launch counts
     are set to 0 just before and read just after. Fails unless every
     request finishes well formed and every kernel of this model's path
-    (`PATH_OF`) launched."""
+    (`PATHS`) launched. Also records the decode engine's steps and the
+    sizes (`Engine.kv_blob_bytes`) of the blobs whole-prompt prefills
+    returned."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.cluster import DisaggCluster
 
     dc = DisaggCluster(cfg, params, n_prefill=1, n_decode=1, max_batch=8,
                        max_len=2048, **cluster_kw)
+    pre = dc.prefill[0]
+    blob_bytes = []
+
+    def prefill_request(seq, _run=pre.prefill_request):
+        first, blob, dt = _run(seq)
+        blob_bytes.append(pre.kv_blob_bytes(blob))
+        return first, blob, dt
+    pre.prefill_request = prefill_request
     reqs = serve_trace(cfg.vocab_size)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -657,7 +921,8 @@ def serve_phase(cfg, params, **cluster_kw):
                prefill_prefix_hit_tokens=prefix_hits,
                prompt_tokens=sum(r.in_len for r in reqs),
                generated_tokens=sum(r.n_generated for r in res.values()),
-               wall_s=wall, launches=counts)
+               wall_s=wall, launches=counts,
+               decode_steps=dc.decode[0].steps, blob_bytes=sum(blob_bytes))
     log(f"serve {cfg.name} f32: served={len(res)}/{len(reqs)} "
         f"finished={len(finished)} ttft_median={ttft:.4f}s "
         f"tpot_median={tpot:.4f}s (virtual clock) "
@@ -671,8 +936,7 @@ def serve_phase(cfg, params, **cluster_kw):
             raise SystemExit(f"serve: request {rid} came back malformed")
     if len(finished) != len(reqs):
         raise SystemExit("serve: not every request finished")
-    zero = [k for k, v in counts.items()
-            if PATH_OF[k] == cfg.name and v <= 0]
+    zero = [k for k in PATHS[cfg.name] if counts[k] <= 0]
     if zero:
         raise SystemExit(f"serve: kernels never launched on the main path: "
                          f"{zero}")
@@ -705,7 +969,8 @@ def smoke_tokens_check(name, **cluster_kw):
                            max_batch=4, max_len=64, device=dev, **cluster_kw)
         toks[dev] = {rid: r.tokens for rid, r in dc.run(reqs).items()}
     same = toks["cuda"] == toks["cpu"]
-    log(f"check {name} f32 tokens, card vs CPU plain versions: "
+    kw = "".join(f" {k}={v}" for k, v in cluster_kw.items())
+    log(f"check {name}{kw} f32 tokens, card vs CPU plain versions: "
         f"{'identical' if same else 'DIFFER'} over {len(reqs)} requests")
     if not same:
         raise SystemExit("check: card tokens differ from the CPU reference")
@@ -1002,6 +1267,141 @@ def yi_profile(cfg, params):
     return out
 
 
+def gemma_serve_counts(cfg, serve):
+    """The gemma3-1b serve phase's launches and bytes against what its path
+    must give: flash_prefill once a layer and request; paged_decode once a
+    layer and decode step; paged_insert as often, the global layers' inside
+    the fused kernel and the ring layers' standalone; the migrated bytes
+    the sum of `kv_bytes(cfg, prompt_len)` (each layer capped at the
+    window, as the JAX cluster counts them). The real blob size is printed
+    beside them."""
+    from repro_torch.core.kv_transfer import kv_bytes
+    from repro_torch.models.transformer import layer_plan
+    L = cfg.num_layers
+    ring = sum(sg.n for sg in layer_plan(cfg) if sg.kind == "local")
+    n, steps, c = serve["submitted"], serve["decode_steps"], \
+        serve["launches"]
+    fused = c["paged_insert_decode"]
+    want = {"flash_prefill": L * n, "paged_decode": L * steps,
+            "paged_insert": L * steps, "fused": (L - ring) * steps,
+            "standalone": ring * steps}
+    got = {"flash_prefill": c["flash_prefill"],
+           "paged_decode": c["paged_decode"],
+           "paged_insert": c["paged_insert"], "fused": fused,
+           "standalone": c["paged_insert"] - fused}
+    want_bytes = sum(kv_bytes(cfg, r.in_len)
+                     for r in serve_trace(cfg.vocab_size))
+    log(f"serve {cfg.name}: launches {got} over {n} prefills and {steps} "
+        f"decode steps (expected {want}); kv bytes migrated "
+        f"{serve['kv_bytes_migrated']} (expected {want_bytes}: kv_bytes "
+        f"caps each layer at the {cfg.sliding_window}-token window); the "
+        f"prefill blobs hold {serve['blob_bytes']} bytes (Engine."
+        f"kv_blob_bytes: f32 slabs, global layers at max_len)")
+    serve["expected_launches"] = want
+    serve["expected_kv_bytes"] = want_bytes
+    if got != want or serve["kv_bytes_migrated"] != want_bytes:
+        raise SystemExit(f"serve: {cfg.name} launches or bytes are off")
+
+
+def slab_teacher_force(model, params, tokens, n_prompt, plain):
+    """On the dense slab (batch 1, a 1024-slot cache): prefill
+    `tokens[:n_prompt]` from scratch (flash_prefill in every layer; the
+    local layers' caches ring-packed), then one decode step per remaining
+    token (the standalone insert + paged_decode on ring layers, the fused
+    insert + decode on global ones). `plain=True` runs the plain versions
+    instead of the kernels. Returns every stage's logits in f32."""
+    import torch
+    toks = torch.as_tensor(tokens, device=params["embed"].device)[None]
+    lg, cache, _ = model.forward(params, toks[:, :n_prompt],
+                                 return_cache=True, max_len=1024,
+                                 plain=plain)
+    out = [lg[:, 0].float()]
+    for t in range(n_prompt, len(tokens)):
+        lg, cache = model.decode_step(params, cache, toks[:, t], plain=plain)
+        out.append(lg.float())
+    return torch.cat(out)
+
+
+def gemma_check(cfg, params):
+    """Full-width gemma3-1b on the slab, teacher-forced over a 700-token
+    prompt (past the 512-token window, so the ring layers wrap) and 8
+    decode steps: the kernel-path logits against the plain path's, at the
+    serving weights (the JAX init, not rescaled). bf16 (a cast of the
+    weights) is held to `GEMMA_LOGIT_BOUND` of the plain path's largest
+    |logit|; f32 is printed for information."""
+    import numpy as np
+    import torch
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg)
+    tokens = np.random.default_rng(13).integers(1, cfg.vocab_size,
+                                                700 + 8).tolist()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        p = model.cast(params, dtype, params["embed"].device)
+        got = slab_teacher_force(model, p, tokens, 700, plain=False)
+        want = slab_teacher_force(model, p, tokens, 700, plain=True)
+        torch.cuda.synchronize()
+        del p
+        r = dict(max_abs_diff=float((got - want).abs().max()),
+                 max_abs_logit=float(want.abs().max()),
+                 argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                    .float().mean()),
+                 held=dtype == torch.bfloat16)
+        r["bound"] = GEMMA_LOGIT_BOUND * r["max_abs_logit"]
+        log(f"check {cfg.name} {dn}, serving weights"
+            f"{f' (bound {GEMMA_LOGIT_BOUND}*max_abs_logit)' if r['held'] else ' (information)'}"
+            f": teacher-forced logits (slab prefill 700 + 8 decode steps), "
+            f"kernels vs plain versions: max_abs_diff={r['max_abs_diff']:.4e}"
+            f" max_abs_logit={r['max_abs_logit']:.4e} "
+            f"argmax_agree={r['argmax_agree']:.3f}")
+        out[dn] = r
+        if r["held"] and not (math.isfinite(r["max_abs_diff"])
+                              and r["max_abs_diff"] <= r["bound"]):
+            raise SystemExit(f"check: {cfg.name} kernel-path logits beyond "
+                             f"the bound")
+    return out
+
+
+def gemma_profile(cfg, params):
+    """Where a gemma3-1b slab decode step's time goes, f32: one step at
+    batch 8 at the serve trace's prompt lengths (22 ring layers: a
+    standalone insert and paged_decode each; 4 global layers: the fused
+    insert + decode)."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import layer_plan
+    model = build_model(cfg)
+    dev = params["embed"].device
+    specs = model.cache_specs(8, 2048, torch.float32)
+    cache = {k: (torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                 if not isinstance(v, dict) else
+                 {c: torch.randn(w.shape, dtype=w.dtype, device=dev)
+                  for c, w in v.items()})
+             for k, v in specs.items()}
+    cache["pos"].copy_(torch.tensor([1500, 640, 200, 1100, 900, 300, 1280,
+                                     520], dtype=torch.int32))
+    step = torch.randint(1, cfg.vocab_size, (8,), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(9))
+    prof = device_profile(lambda: model.decode_step(params, cache, step),
+                          f"{cfg.name} slab decode step, batch 8, "
+                          f"positions 200..1500")
+    by = prof["launches_by_kernel"]
+    split = sum(c for k, c in by.items() if "paged_decode_split_kernel" in k)
+    alone = sum(c for k, c in by.items() if "paged_insert_kernel" in k)
+    ring = sum(sg.n for sg in layer_plan(cfg) if sg.kind == "local")
+    log(f"profile {cfg.name} decode step: kernels={prof['kernels']} "
+        f"paged_decode_split_kernel={split} paged_insert_kernel={alone} "
+        f"(expected {cfg.num_layers} and {ring}: one split kernel a layer, "
+        f"a standalone insert on each ring layer)")
+    if split != cfg.num_layers or alone != ring:
+        raise SystemExit("profile: the slab decode step did not run the "
+                         "kernels of its route")
+    del cache
+    return prof
+
+
 # ---------------------------------------------------------------------------
 
 def ptxas_summary(build_log: Path) -> str:
@@ -1071,9 +1471,13 @@ def main() -> int:
               "nvidia_smi": smi, "build_s": build_seconds()}
     cfg = get_config("yi-6b")
     mcfg = get_config("mamba2-2.7b")
+    gcfg = get_config("gemma3-1b")
     dtypes = (torch.float32, torch.bfloat16)
     record["kernels"] = kernel_phase(cfg, dtypes)
     for dn, rows in ssd_kernel_phase(mcfg, dtypes).items():
+        record["kernels"][dn].update(rows)
+    for dn, rows in wide_kernel_phase(gcfg, get_config("zamba2-7b"),
+                                      dtypes).items():
         record["kernels"][dn].update(rows)
 
     # -- yi-6b: the paged path ---------------------------------------------
@@ -1104,15 +1508,29 @@ def main() -> int:
     record["check_mamba"] = mamba_check(mcfg, params)
     record["profile_mamba"] = mamba_profile(mcfg, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    # -- gemma3-1b: the transformer's dense slab ---------------------------
+    params = init_params(gcfg)
+    record["serve_gemma"] = serve = serve_phase(gcfg, params)
+    gemma_serve_counts(gcfg, serve)
+    record["check_tokens_gemma"] = smoke_tokens_check("gemma3-1b-smoke")
+    record["check_tokens_yi_slab"] = smoke_tokens_check("yi-6b-smoke",
+                                                        paged=False)
+    record["check_gemma"] = gemma_check(gcfg, params)
+    record["profile_gemma"] = gemma_profile(gcfg, params)
+    del params
+
+    serves = {"yi-6b": record["serve"], "mamba2-2.7b": record["serve_mamba"],
+              "gemma3-1b": record["serve_gemma"]}
     rows = []
-    for name, (src, replaces) in SOURCES.items():
-        r = record["kernels"]["float32"][name]
-        launches = (record["serve"] if PATH_OF[name] == cfg.name
-                    else record["serve_mamba"])["launches"]
+    for name, kern, path, row in SUMMARY:
+        src, replaces = SOURCES[kern]
+        r = record["kernels"]["float32"][row]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": launches.get(name, 0),
+                     "launches": serves[path]["launches"][kern],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"],

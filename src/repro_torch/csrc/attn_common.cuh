@@ -52,14 +52,44 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The head dim an instance runs (ATTN_DISPATCH_HD): its HD, a
+// compile-time constant, unless it is a padded instance, which takes the
+// caller's hd < HD.
+template <int HD, bool PAD>
+__device__ __forceinline__ int head_dim(int hd) {
+  return PAD ? hd : HD;
+}
+
 }  // namespace attn
 
-// Dispatch a head dim known at run time onto the compiled instances.
-#define ATTN_DISPATCH_HD(hd, HD, ...)           \
-  switch (hd) {                                 \
-    case 16: { constexpr int HD = 16; __VA_ARGS__; break; }   \
-    case 32: { constexpr int HD = 32; __VA_ARGS__; break; }   \
-    case 64: { constexpr int HD = 64; __VA_ARGS__; break; }   \
-    case 128: { constexpr int HD = 128; __VA_ARGS__; break; } \
-    default: return static_cast<int>(cudaErrorInvalidValue);  \
-  }
+// Dispatch a head dim known at run time onto the compiled instances HD of
+// 16, 32, 64, 128 and 256. A head dim hd that is a multiple of 16 and at
+// most 256 runs on the smallest instance HD >= hd: hd == HD on the exact
+// instance (PAD false), where the head dim is the compile-time HD; any
+// other hd on the padded one (PAD true), which takes hd at run time,
+// addresses global rows in hd, zero-fills the columns past hd on every
+// load into shared memory and masks them on every store (hd = 112 runs on
+// the padded 128 instance, 144..240 on the padded 256 one). Any other hd
+// is refused. kernels/build.py::head_dim_instance states the same rule.
+#define ATTN_DISPATCH_HD(hd, HD, PAD, ...)                                 \
+  do {                                                                     \
+    if ((hd) < 16 || (hd) > 256 || (hd) % 16 != 0)                         \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+    if ((hd) == 16) {                                                      \
+      constexpr int HD = 16; constexpr bool PAD = false; __VA_ARGS__;      \
+    } else if ((hd) == 32) {                                               \
+      constexpr int HD = 32; constexpr bool PAD = false; __VA_ARGS__;      \
+    } else if ((hd) == 64) {                                               \
+      constexpr int HD = 64; constexpr bool PAD = false; __VA_ARGS__;      \
+    } else if ((hd) == 128) {                                              \
+      constexpr int HD = 128; constexpr bool PAD = false; __VA_ARGS__;     \
+    } else if ((hd) == 256) {                                              \
+      constexpr int HD = 256; constexpr bool PAD = false; __VA_ARGS__;     \
+    } else if ((hd) < 64) {                                                \
+      constexpr int HD = 64; constexpr bool PAD = true; __VA_ARGS__;       \
+    } else if ((hd) < 128) {                                               \
+      constexpr int HD = 128; constexpr bool PAD = true; __VA_ARGS__;      \
+    } else {                                                               \
+      constexpr int HD = 256; constexpr bool PAD = true; __VA_ARGS__;      \
+    }                                                                      \
+  } while (0)

@@ -68,20 +68,23 @@ struct RowSrc {
 // (row strides ks, vs elements), 16 bytes a copy. Each thread keeps one
 // 16-byte column and walks rows, so `src(r)` (a block-table lookup in a
 // paged walk) runs once per row and thread and serves K and V alike.
-// The caller commits the group.
+// Columns at or past the head dim hd (<= HD, a multiple of 16) are
+// zero-filled: the tile's padding never holds stale data. The caller
+// commits the group.
 template <typename T, int HD, int ROWS, int NTHR, typename SrcFn>
 __device__ __forceinline__ void copy_kv_rows(T* kd, T* vd, int ks, int vs,
                                              const T* kbase, const T* vbase,
-                                             SrcFn src) {
+                                             int hd, SrcFn src) {
   constexpr int EPC = 16 / sizeof(T);
   constexpr int CPR = HD / EPC;
   static_assert(NTHR % CPR == 0, "a thread keeps one column");
   const int c = (threadIdx.x % CPR) * EPC;
+  const bool col_live = c < hd;
   for (int r = threadIdx.x / CPR; r < ROWS; r += NTHR / CPR) {
     const RowSrc s = src(r);
     T* kdst = kd + r * ks + c;
     T* vdst = vd + r * vs + c;
-    if (s.ok) {
+    if (s.ok && col_live) {
       cp_async16(kdst, kbase + s.k + c);
       cp_async16(vdst, vbase + s.v + c);
     } else {
@@ -377,12 +380,14 @@ __device__ __forceinline__ void mma_attend(MmaState<HD>& st,
 }
 
 // Write a warp's finished rows from the accumulator layout: o / max(l,
-// 1e-37) as bf16, warp-local rows r < n_valid only; l is each thread's
-// part of its rows' sums. `row(r)` returns the output row's first element.
+// 1e-37) as bf16, warp-local rows r < n_valid and columns < hd only; l is
+// each thread's part of its rows' sums. `row(r)` returns the output row's
+// first element.
 template <int HD, typename RowFn>
 __device__ __forceinline__ void store_rows_bf16(const float (&o)[HD / 8][4],
                                                 const float (&l2)[2],
-                                                int n_valid, RowFn row) {
+                                                int n_valid, int hd,
+                                                RowFn row) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -395,6 +400,7 @@ __device__ __forceinline__ void store_rows_bf16(const float (&o)[HD / 8][4],
     const float den = fmaxf(l, DEN_MIN);
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
+      if (8 * n + 2 * t4 >= hd) continue;     // a pair is in or out whole
       __nv_bfloat162 v = __floats2bfloat162_rn(o[n][2 * i] / den,
                                                o[n][2 * i + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t4) = v;
@@ -404,8 +410,8 @@ __device__ __forceinline__ void store_rows_bf16(const float (&o)[HD / 8][4],
 
 template <int HD, typename RowFn>
 __device__ __forceinline__ void mma_store(const MmaState<HD>& st,
-                                          int n_valid, RowFn row) {
-  store_rows_bf16<HD>(st.o, st.l, n_valid, row);
+                                          int n_valid, int hd, RowFn row) {
+  store_rows_bf16<HD>(st.o, st.l, n_valid, hd, row);
 }
 
 }  // namespace attn

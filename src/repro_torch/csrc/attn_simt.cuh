@@ -15,7 +15,10 @@
 // fall in different banks.
 //
 // Shared memory at hd 128: Q 33.8 KB + K 2 x 33.8 KB + V 2 x 32.8 KB + P
-// 17.4 KB = 184 KB, one block (4 warps) per SM.
+// 17.4 KB = 184 KB, one block (4 warps) per SM. At hd 256 two stages
+// would take 340 KB, over the 227 KB a block may have, so the ring has one
+// stage there (211 KB): the copy of tile t + 1 starts once tile t is done
+// (SimtSmem::STAGES; the callers' loops take either).
 #pragma once
 
 #include "attn_mma.cuh"
@@ -37,10 +40,11 @@ struct SimtSmem {
   static constexpr int PS = SIMT_BKV + 4;
   static constexpr int OV = HD / 16 < 4 ? HD / 16 : 4;   // output vector
   static constexpr int OC = HD / 16 / OV;                // output chunks
+  static constexpr int STAGES = HD <= 128 ? 2 : 1;          // K/V ring
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + SIMT_BQ * QS;        // 2 stages
-  static constexpr int V_OFF = K_OFF + 2 * SIMT_BKV * KS;   // 2 stages
-  static constexpr int P_OFF = V_OFF + 2 * SIMT_BKV * VS;
+  static constexpr int K_OFF = Q_OFF + SIMT_BQ * QS;
+  static constexpr int V_OFF = K_OFF + STAGES * SIMT_BKV * KS;
+  static constexpr int P_OFF = V_OFF + STAGES * SIMT_BKV * VS;
   static constexpr int FLOATS = P_OFF + SIMT_BQ * PS;
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
@@ -165,10 +169,11 @@ __device__ __forceinline__ void simt_attend(SimtState<HD>& st,
   }
 }
 
-// Write the finished tile: o / max(l, 1e-37), rows < n_valid only.
+// Write the finished tile: o / max(l, 1e-37), rows < n_valid and
+// columns < hd only.
 template <int HD, typename RowFn>
 __device__ __forceinline__ void simt_store(const SimtState<HD>& st,
-                                           int n_valid, RowFn row) {
+                                           int n_valid, int hd, RowFn row) {
   using L = SimtSmem<HD>;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
@@ -178,10 +183,13 @@ __device__ __forceinline__ void simt_store(const SimtState<HD>& st,
     float* dst = row(r);
     const float den = fmaxf(st.l[i], DEN_MIN);
 #pragma unroll
-    for (int c = 0; c < L::OC; ++c)
+    for (int c = 0; c < L::OC; ++c) {
+      const int col = c * 16 * L::OV + tx * L::OV;
+      if (col >= hd) continue;            // OV columns are in or out whole
 #pragma unroll
       for (int e = 0; e < L::OV; ++e)
-        dst[c * 16 * L::OV + tx * L::OV + e] = st.o[i][c * L::OV + e] / den;
+        dst[col + e] = st.o[i][c * L::OV + e] / den;
+    }
   }
 }
 

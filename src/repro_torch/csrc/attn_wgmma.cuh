@@ -4,9 +4,11 @@
 //
 // Tiles in shared memory are what TMA writes with a swizzle: a tile of 64
 // rows of HD bf16 is cut into column boxes of RB = min(2 HD, 128) bytes
-// per row (one box at HD <= 64, two at HD = 128), each box 64 rows x RB
-// bytes with the RB-byte swizzle (128B, 64B or 32B). A wgmma descriptor
-// names the same swizzle, so the two always agree:
+// per row (one box at HD <= 64, two at HD = 128, four at HD = 256), each
+// box 64 rows x RB bytes with the RB-byte swizzle (128B, 64B or 32B). A
+// head dim hd < HD has a tensor map of inner extent hd: TMA zero-fills the
+// columns past it. A wgmma descriptor names the same swizzle, so the two
+// always agree:
 //   - K-major operand (Q and K: rows are M or N, the head dim is K): the
 //     8-row groups are SBO = 8 RB bytes apart; the k-step of 16 elements
 //     (32 bytes) moves 32 bytes along the row, into the next box when the
@@ -118,7 +120,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
 // layout code for that swizzle (1 = 128B, 2 = 64B, 3 = 32B).
 template <int HD>
 struct WgBox {
-  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128,
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128 || HD == 256,
                 "head dim of the wgmma tile");
   static constexpr int RB = HD * 2 < 128 ? HD * 2 : 128;
   static constexpr int COLS = RB / 2;               // elements a box row
@@ -228,8 +230,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
 }
 
 // d (m64 x n128, f32) += A (64 x 16 bf16, registers) * B (16 x n128,
-// MN-major in shared memory: the transpose bit is set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+// MN-major in shared memory: the transpose bit is set), into d[OFF ..
+// OFF + 15]
+template <int OFF = 0, int N = 16>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N][4],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
   asm volatile(
@@ -243,25 +247,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+        "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+        "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+        "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+        "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+        "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
+        "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
+        "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3]),
+        "+f"(d[OFF + 8][0]), "+f"(d[OFF + 8][1]), "+f"(d[OFF + 8][2]), "+f"(d[OFF + 8][3]),
+        "+f"(d[OFF + 9][0]), "+f"(d[OFF + 9][1]), "+f"(d[OFF + 9][2]), "+f"(d[OFF + 9][3]),
+        "+f"(d[OFF + 10][0]), "+f"(d[OFF + 10][1]), "+f"(d[OFF + 10][2]), "+f"(d[OFF + 10][3]),
+        "+f"(d[OFF + 11][0]), "+f"(d[OFF + 11][1]), "+f"(d[OFF + 11][2]), "+f"(d[OFF + 11][3]),
+        "+f"(d[OFF + 12][0]), "+f"(d[OFF + 12][1]), "+f"(d[OFF + 12][2]), "+f"(d[OFF + 12][3]),
+        "+f"(d[OFF + 13][0]), "+f"(d[OFF + 13][1]), "+f"(d[OFF + 13][2]), "+f"(d[OFF + 13][3]),
+        "+f"(d[OFF + 14][0]), "+f"(d[OFF + 14][1]), "+f"(d[OFF + 14][2]), "+f"(d[OFF + 14][3]),
+        "+f"(d[OFF + 15][0]), "+f"(d[OFF + 15][1]), "+f"(d[OFF + 15][2]), "+f"(d[OFF + 15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64 x nHD) += A (registers) * B (MN-major V tile, k-step at db). At
+// HD = 256 that is two n128 products, one over each half of the columns:
+// boxes 0-1 and 2-3 of the tile, 2 BYTES apart (desc_mnmajor's LBO steps
+// from box to box inside one product).
 template <int HD>
 __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 8][4],
                                          const uint32_t (&a)[4],
@@ -269,7 +277,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 8][4],
   if constexpr (HD == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (HD == 128) wgmma_rs_n128(d, a, db);
+  else {
+    // the descriptor's address field counts 16-byte units (bits 0-13)
+    constexpr uint64_t HALF = (2 * WgBox<HD>::BYTES) >> 4;
+    wgmma_rs_n128<0>(d, a, db);
+    wgmma_rs_n128<16>(d, a, db + HALF);
+  }
 }
 
 }  // namespace attn

@@ -44,6 +44,14 @@
 // tolerance and the f32 card-vs-CPU token identity): attn_simt.cuh's 8 x 4
 // score and 8 x hd/16 output register tiles read as float4s, fed by a
 // two-stage ring of 16-byte cp.async copies.
+//
+// Head dims: instances of 16, 32, 64, 128 and 256 (attn_common.cuh). A
+// head dim below its instance (zamba2-7b's 112 on the 128 one) reads its
+// padding columns as zeros (TMA's out-of-bounds fill in bf16, zero-filled
+// copies in f32) and never stores them. At hd 256 (gemma3-1b) a bf16
+// block serves one query head, as two would need 257 KB of shared memory,
+// and its 128 accumulator registers a thread share the 255 of a thread
+// with the scores and P; the f32 kernel's ring has one stage there.
 #include <type_traits>
 
 #include "attn_simt.cuh"
@@ -62,6 +70,7 @@ struct FlashArgs {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   int H, Hkv, Sq, Skv, causal, window, nq;
   float scale, softcap;
+  int hd;           // the head dim; the instance's HD >= hd (attn_common)
 };
 
 // The kv walk of one 64-row q tile: tiles kv_begin + 64 t for t < nt.
@@ -105,7 +114,7 @@ struct FlashWalk {
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA, QH consumer warpgroups and one producer warpgroup.
 // ---------------------------------------------------------------------------
-template <int HD, int QH>
+template <int HD, int QH, bool PAD>
 __global__ void __launch_bounds__(128 * (QH + 1), 1)
     flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -278,7 +287,8 @@ __global__ void __launch_bounds__(128 * (QH + 1), 1)
       fence_regs(o);            // where the paths join
     }
     bf16* ob = static_cast<bf16*>(a.o) + b * a.osb + (h0 + hq) * a.osh;
-    store_rows_bf16<HD>(o, l, a.Sq - w.q0 - wr0, [&](int r) {
+    store_rows_bf16<HD>(o, l, a.Sq - w.q0 - wr0, head_dim<HD, PAD>(a.hd),
+                        [&](int r) {
       return ob + (long long)(w.q0 + wr0 + r) * a.oss;
     });
   }
@@ -287,10 +297,11 @@ __global__ void __launch_bounds__(128 * (QH + 1), 1)
 // ---------------------------------------------------------------------------
 // f32: register tiles on the CUDA cores, one (batch, head) a block.
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(SIMT_NT)
     flash_prefill_simt_kernel(const FlashArgs a) {
   using L = SimtSmem<HD>;
+  const int hd = head_dim<HD, PAD>(a.hd);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   float* Qs = sm + L::Q_OFF;
@@ -306,21 +317,21 @@ __global__ void __launch_bounds__(SIMT_NT)
   const float* vb = static_cast<const float*>(a.v) + b * a.vsb + kh * a.vsh;
   float* ob = static_cast<float*>(a.o) + b * a.osb + h * a.osh;
 
-  // the Q tile, rows past Sq zero-filled
+  // the Q tile, rows past Sq and columns past hd zero-filled
   constexpr int CPR = HD / 4;
   const int c = (threadIdx.x % CPR) * 4;
   for (int r = threadIdx.x / CPR; r < 64; r += SIMT_NT / CPR) {
     float* dst = Qs + r * L::QS + c;
-    if (w.q0 + r < a.Sq)
+    if (w.q0 + r < a.Sq && c < hd)
       cp_async16(dst, qb + (long long)(w.q0 + r) * a.qss + c);
     else
       zero16(dst);
   }
   auto issue = [&](int t) {
-    const int k0 = w.kv_begin + 64 * t, stg = t & 1;
+    const int k0 = w.kv_begin + 64 * t, stg = t % L::STAGES;
     copy_kv_rows<float, HD, SIMT_BKV, SIMT_NT>(
         Ks + stg * SIMT_BKV * L::KS, Vs + stg * SIMT_BKV * L::VS, L::KS,
-        L::VS, kb, vb, [&](int r) {
+        L::VS, kb, vb, hd, [&](int r) {
           const long long pos = k0 + r;
           if (pos >= a.Skv) return RowSrc{0, 0, false};
           return RowSrc{pos * a.kss, pos * a.vss, true};
@@ -333,15 +344,23 @@ __global__ void __launch_bounds__(SIMT_NT)
   for (int t = 0; t < w.nt; ++t) {
     cp_async_wait<0>();
     __syncthreads();       // tile t landed; tile t - 1's buffers are free
-    if (t + 1 < w.nt) issue(t + 1);
-    cp_async_commit();
-    simt_attend<HD>(st, Qs, Ks + (t & 1) * SIMT_BKV * L::KS,
-                    Vs + (t & 1) * SIMT_BKV * L::VS, Ps, a.scale, a.softcap,
+    if (L::STAGES == 2) {  // tile t + 1 flies while tile t is computed
+      if (t + 1 < w.nt) issue(t + 1);
+      cp_async_commit();
+    }
+    const int stg = t % L::STAGES;
+    simt_attend<HD>(st, Qs, Ks + stg * SIMT_BKV * L::KS,
+                    Vs + stg * SIMT_BKV * L::VS, Ps, a.scale, a.softcap,
                     w.full(a, t, 0, 64),
                     [&](int r, int cc) { return w.visible(a, t, r, cc); });
+    if (L::STAGES == 1) {  // one stage: the copy waits for the tile's use
+      __syncthreads();
+      if (t + 1 < w.nt) issue(t + 1);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
-  simt_store<HD>(st, a.Sq - w.q0, [&](int r) {
+  simt_store<HD>(st, a.Sq - w.q0, hd, [&](int r) {
     return ob + (long long)(w.q0 + r) * a.oss;
   });
 }
@@ -377,15 +396,19 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map (head dim, seq, head, batch) of a bf16 (B, heads, S, HD) view
-// with element strides (sb, sh, ss), in boxes of (COLS, 64, 1, 1).
+// A 4-D map (head dim, seq, head, batch) of a bf16 (B, heads, S, hd) view
+// with element strides (sb, sh, ss), in boxes of (COLS, 64, 1, 1) that
+// tile the instance's HD >= hd columns: the columns past hd, like the rows
+// past S, are out of bounds and arrive zero-filled (and still count in
+// the box's bytes on the barrier).
 template <int HD>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int S, int heads,
-                     int B, long long sb, long long sh, long long ss) {
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd, int S,
+                     int heads, int B, long long sb, long long sh,
+                     long long ss) {
   using W = WgBox<HD>;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
@@ -401,28 +424,44 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int S, int heads,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Shared memory of the bf16 kernel: QH Q tiles and the K and V rings,
+// 1024 bytes of alignment slack, the barriers. At HD = 256 a tile is 32
+// KB: one query head a block fits (7 tiles, 225 KB of the 227 KB a block
+// may have), two would not.
 template <int HD, int QH>
-cudaError_t launch_wgmma(const FlashArgs& a, int B, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map<HD>(&tq, a.q, a.Sq, a.H, B, a.qsb, a.qsh, a.qss);
-  if (err == cudaSuccess)
-    err = make_map<HD>(&tk, a.k, a.Skv, a.Hkv, B, a.ksb, a.ksh, a.kss);
-  if (err == cudaSuccess)
-    err = make_map<HD>(&tv, a.v, a.Skv, a.Hkv, B, a.vsb, a.vsh, a.vss);
-  if (err != cudaSuccess) return err;
-  auto kern = flash_prefill_wgmma_kernel<HD, QH>;
-  const size_t bytes = (size_t)(QH + 2 * RING) * WgBox<HD>::TILE + 1024 +
-                       (1 + 3 * RING) * sizeof(uint64_t);
-  err = allow_smem(kern, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * a.H / QH, a.nq);
-  kern<<<grid, 128 * (QH + 1), bytes, stream>>>(tq, tk, tv, a);
-  return cudaGetLastError();
+constexpr size_t wgmma_smem_bytes() {
+  return (size_t)(QH + 2 * RING) * WgBox<HD>::TILE + 1024 +
+         (1 + 3 * RING) * sizeof(uint64_t);
 }
 
-template <int HD>
+template <int HD, int QH, bool PAD>
+cudaError_t launch_wgmma(const FlashArgs& a, int B, cudaStream_t stream) {
+  if constexpr (wgmma_smem_bytes<HD, QH>() > 232448) {
+    return cudaErrorInvalidValue;   // the wrapper asks for QH = 1 there
+  } else {
+    CUtensorMap tq, tk, tv;
+    cudaError_t err = make_map<HD>(&tq, a.q, a.hd, a.Sq, a.H, B, a.qsb,
+                                   a.qsh, a.qss);
+    if (err == cudaSuccess)
+      err = make_map<HD>(&tk, a.k, a.hd, a.Skv, a.Hkv, B, a.ksb, a.ksh,
+                         a.kss);
+    if (err == cudaSuccess)
+      err = make_map<HD>(&tv, a.v, a.hd, a.Skv, a.Hkv, B, a.vsb, a.vsh,
+                         a.vss);
+    if (err != cudaSuccess) return err;
+    auto kern = flash_prefill_wgmma_kernel<HD, QH, PAD>;
+    const size_t bytes = wgmma_smem_bytes<HD, QH>();
+    err = allow_smem(kern, bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * a.H / QH, a.nq);
+    kern<<<grid, 128 * (QH + 1), bytes, stream>>>(tq, tk, tv, a);
+    return cudaGetLastError();
+  }
+}
+
+template <int HD, bool PAD>
 cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
-  auto kern = flash_prefill_simt_kernel<HD>;
+  auto kern = flash_prefill_simt_kernel<HD, PAD>;
   const size_t bytes = SimtSmem<HD>::BYTES;
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return err;
@@ -437,7 +476,8 @@ cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
 // head, seq) for each of q, k, v, o; every tensor starts on 16 bytes and
 // every stride is a whole number of 16-byte chunks (the wrapper checks).
 // qh: query heads a block of the bf16 kernel (1, or 2 where H / Hkv is
-// even). Returns a cudaError_t code.
+// even and hd <= 128). hd: a multiple of 16 up to 256 (attn_common.cuh).
+// Returns a cudaError_t code.
 extern "C" int flash_prefill(int dtype, int hd, const void* q, const void* k,
                              const void* v, void* o, const long long* st,
                              int B, int H, int Hkv, int Sq, int Skv,
@@ -449,14 +489,14 @@ extern "C" int flash_prefill(int dtype, int hd, const void* q, const void* k,
                     st[2],  st[3],  st[4],  st[5],  st[6],  st[7],
                     st[8],  st[9],  st[10], st[11], H,      Hkv,
                     Sq,     Skv,    causal, window, (Sq + 63) / 64,
-                    scale,  softcap};
+                    scale,  softcap, hd};
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    ATTN_DISPATCH_HD(hd, HD, err = launch_simt<HD>(a, B, s));
+    ATTN_DISPATCH_HD(hd, HD, PAD, err = (launch_simt<HD, PAD>(a, B, s)));
   } else if (dtype == 1 && qh == 2 && (H / Hkv) % 2 == 0) {
-    ATTN_DISPATCH_HD(hd, HD, err = (launch_wgmma<HD, 2>(a, B, s)));
+    ATTN_DISPATCH_HD(hd, HD, PAD, err = (launch_wgmma<HD, 2, PAD>(a, B, s)));
   } else if (dtype == 1 && qh == 1) {
-    ATTN_DISPATCH_HD(hd, HD, err = (launch_wgmma<HD, 1>(a, B, s)));
+    ATTN_DISPATCH_HD(hd, HD, PAD, err = (launch_wgmma<HD, 1, PAD>(a, B, s)));
   }
   return static_cast<int>(err);
 }

@@ -58,6 +58,13 @@
 // belongs to one sequence. Idle slots (table rows all trash page 0) both
 // write and read page 0 in the same launch; that race touches only rows
 // whose outputs the engine throws away. len = 0 writes nothing.
+//
+// Head dims: instances of 16..256 (attn_common.cuh). A head dim below its
+// instance addresses rows in hd, zero-fills its padding columns of Q and
+// of every K/V tile and writes only its hd columns (workspace, output and
+// the inserted row). At hd 256 a P.V thread owns 4 columns of 8 heads and
+// an INSERT thread 2 elements of the new row; the f32 rings take 130 KB of
+// shared memory. paged_insert copies rows of any width.
 #include "attn_mma.cuh"
 
 using namespace attn;
@@ -94,17 +101,20 @@ struct InsertRows {
   T* vw;
 };
 
-template <typename T, int HD, bool INSERT, typename TN>
+template <typename T, int HD, bool PAD, bool INSERT, typename TN>
 __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kp,
     const T* __restrict__ vp, const int* __restrict__ table,
     const int* __restrict__ lens, float* __restrict__ ws_acc,
-    float* __restrict__ ws_ml, int H, int Hkv, int page, int pps,
-    int split_pages, float scale, float softcap, InsertRows<T, TN> ins) {
+    float* __restrict__ ws_ml, int H, int Hkv, int hd_arg, int page,
+    int pps, int split_pages, float scale, float softcap,
+    InsertRows<T, TN> ins) {
   using L = DecodeSmem<T, HD>;
+  const int hd = head_dim<HD, PAD>(hd_arg);
   constexpr int CPR = HD / L::EPC;             // 16-byte chunks a row
   constexpr int NPG = DEC_NT / (HD / 4);       // P.V head groups
   constexpr int APT = (DEC_GMAX + NPG - 1) / NPG;
+  constexpr int NPT = (HD + DEC_NT - 1) / DEC_NT;  // new-row elements/thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = H / Hkv;
   const int b = blockIdx.x, kh = blockIdx.y, sp = blockIdx.z;
@@ -118,8 +128,8 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
       ((long long)b * H + (long long)kh * G) * n_split + sp;
 
   if (start >= end) {
-    for (int i = tid; i < G * HD; i += DEC_NT)
-      ws_acc[(slot0 + (long long)(i / HD) * n_split) * HD + i % HD] = 0.f;
+    for (int i = tid; i < G * hd; i += DEC_NT)
+      ws_acc[(slot0 + (long long)(i / hd) * n_split) * hd + i % hd] = 0.f;
     for (int g = tid; g < G; g += DEC_NT) {
       ws_ml[2 * (slot0 + (long long)g * n_split)] = NEG_INF;
       ws_ml[2 * (slot0 + (long long)g * n_split) + 1] = 0.f;
@@ -133,26 +143,34 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
   float* Ps = Qs + G * HD;
   float* Cs = Ps + G * DEC_ROWS;
 
-  const T* qb = q + ((long long)b * H + (long long)kh * G) * HD;
-  for (int i = tid; i < G * HD; i += DEC_NT) Qs[i] = to_f32(qb[i]);
+  // Q of the group in f32, its columns past hd zero
+  const T* qb = q + ((long long)b * H + (long long)kh * G) * hd;
+  for (int i = tid; i < G * HD; i += DEC_NT) {
+    const int d = i % HD;
+    Qs[i] = d < hd ? to_f32(qb[(i / HD) * hd + d]) : 0.f;
+  }
 
   const int* tab = table + (long long)b * pps;
-  const long long row_elems = (long long)Hkv * HD;
+  const long long row_elems = (long long)Hkv * hd;
 
   // INSERT: this block owns position len - 1 iff it lies in [start, end);
-  // thread tid < HD keeps element tid of the new K and V rows
+  // thread tid keeps elements tid + DEC_NT j (< hd) of the new K and V rows
   const bool owner = INSERT && len - 1 < end;
-  T k_new = from_f32<T>(0.f), v_new = from_f32<T>(0.f);
+  T k_new[NPT], v_new[NPT];
   if constexpr (INSERT) {
-    if (owner && tid < HD) {
-      const long long src = ((long long)b * Hkv + kh) * HD + tid;
-      k_new = from_f32<T>(to_f32(ins.kn[src]));
-      v_new = from_f32<T>(to_f32(ins.vn[src]));
-      const long long dst =
-          ((long long)tab[(len - 1) / page] * page + (len - 1) % page) *
-              row_elems + (long long)kh * HD + tid;
-      ins.kw[dst] = k_new;
-      ins.vw[dst] = v_new;
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) {
+      const int d = tid + DEC_NT * j;
+      if (owner && d < hd) {
+        const long long src = ((long long)b * Hkv + kh) * hd + d;
+        k_new[j] = from_f32<T>(to_f32(ins.kn[src]));
+        v_new[j] = from_f32<T>(to_f32(ins.vn[src]));
+        const long long dst =
+            ((long long)tab[(len - 1) / page] * page + (len - 1) % page) *
+                row_elems + (long long)kh * hd + d;
+        ins.kw[dst] = k_new[j];
+        ins.vw[dst] = v_new[j];
+      }
     }
   }
   const int ntiles = (end - start + DEC_ROWS - 1) / DEC_ROWS;
@@ -174,10 +192,10 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
       if (r < DEC_ROWS) {
         T* kdst = kd + r * L::KS + c;
         T* vdst = vd + r * L::VS + c;
-        if (pos < end) {
+        if (pos < end && c < hd) {
           const long long src =
               ((long long)pid * page + pos % page) * row_elems +
-              (long long)kh * HD + c;
+              (long long)kh * hd + c;
           cp_async16(kdst, kp + src);
           cp_async16(vdst, vp + src);
         } else {
@@ -218,9 +236,13 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
       // the owner's last tile ends at len - 1: its ring row takes the new
       // values, whatever the copy of that row read
       if (owner && t == ntiles - 1) {
-        if (tid < HD) {
-          Ks[((t & 1) * DEC_ROWS + len - 1 - k0) * L::KS + tid] = k_new;
-          Vs[((t & 1) * DEC_ROWS + len - 1 - k0) * L::VS + tid] = v_new;
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          const int d = tid + DEC_NT * j;
+          if (d < hd) {
+            Ks[((t & 1) * DEC_ROWS + len - 1 - k0) * L::KS + d] = k_new[j];
+            Vs[((t & 1) * DEC_ROWS + len - 1 - k0) * L::VS + d] = v_new[j];
+          }
         }
         __syncthreads();
       }
@@ -314,9 +336,9 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
 #pragma unroll
   for (int a = 0; a < APT; ++a) {
     const int g = hg + NPG * a;
-    if (g < G)
+    if (g < G && 4 * c4 < hd)
       *reinterpret_cast<float4*>(
-          ws_acc + (slot0 + (long long)g * n_split) * HD + 4 * c4) =
+          ws_acc + (slot0 + (long long)g * n_split) * hd + 4 * c4) =
           make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
   }
   if (lane == 0) {
@@ -331,54 +353,55 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
   }
 }
 
-// One block of HD threads per (sequence, head): merge the live splits in
-// split order, then o = acc / max(l, 1e-37) in the storage type.
-template <typename T, int HD>
+// One block of hd (<= HD) threads per (sequence, head): merge the live
+// splits in split order, then o = acc / max(l, 1e-37) in the storage type.
+template <typename T, int HD, bool PAD>
 __global__ void __launch_bounds__(HD) paged_decode_combine_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-    const int* __restrict__ lens, T* __restrict__ o, int H, int page,
-    int pps, int split_pages, int n_split) {
+    const int* __restrict__ lens, T* __restrict__ o, int H, int hd_arg,
+    int page, int pps, int split_pages, int n_split) {
+  const int hd = head_dim<HD, PAD>(hd_arg);
   const int bh = blockIdx.x, d = threadIdx.x;
   const int len = min(lens[bh / H], pps * page);
   const int split_rows = split_pages * page;
   const int n_live = min(n_split, (len + split_rows - 1) / split_rows);
   const float* ml = ws_ml + (long long)bh * n_split * 2;
-  const float* acc = ws_acc + (long long)bh * n_split * HD;
+  const float* acc = ws_acc + (long long)bh * n_split * hd;
   float m_max = NEG_INF;
   for (int s = 0; s < n_live; ++s) m_max = fmaxf(m_max, ml[2 * s]);
   float l = 0.f, a = 0.f;
   for (int s = 0; s < n_live; ++s) {
     const float corr = expf(ml[2 * s] - m_max);
     l += ml[2 * s + 1] * corr;
-    a += acc[(long long)s * HD + d] * corr;
+    a += acc[(long long)s * hd + d] * corr;
   }
-  o[(long long)bh * HD + d] = from_f32<T>(a / fmaxf(l, DEN_MIN));
+  o[(long long)bh * hd + d] = from_f32<T>(a / fmaxf(l, DEN_MIN));
 }
 
-template <typename T, int HD, bool INSERT, typename TN>
+template <typename T, int HD, bool PAD, bool INSERT, typename TN>
 static cudaError_t launch_decode(const void* q, const void* kp,
                                  const void* vp, const void* table,
                                  const void* lens, void* o, void* ws, int B,
-                                 int H, int Hkv, int page, int pps,
+                                 int H, int Hkv, int hd, int page, int pps,
                                  int split_pages, int n_split, float scale,
                                  float softcap, InsertRows<T, TN> ins,
                                  cudaStream_t stream) {
-  auto kern = paged_decode_split_kernel<T, HD, INSERT, TN>;
+  auto kern = paged_decode_split_kernel<T, HD, PAD, INSERT, TN>;
   const size_t bytes = DecodeSmem<T, HD>::bytes(H / Hkv);
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return err;
   float* ws_acc = static_cast<float*>(ws);
-  float* ws_ml = ws_acc + (size_t)B * H * n_split * HD;
+  float* ws_ml = ws_acc + (size_t)B * H * n_split * hd;
   kern<<<dim3(B, Hkv, n_split), DEC_NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(lens), ws_acc, ws_ml, H, Hkv, page, pps,
+      static_cast<const int*>(lens), ws_acc, ws_ml, H, Hkv, hd, page, pps,
       split_pages, scale, softcap, ins);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_combine_kernel<T, HD><<<B * H, HD, 0, stream>>>(
+  paged_decode_combine_kernel<T, HD, PAD><<<B * H, hd, 0, stream>>>(
       ws_acc, ws_ml, static_cast<const int*>(lens), static_cast<T*>(o), H,
-      page, pps, split_pages, n_split);
+      hd, page, pps, split_pages, n_split);
   return cudaGetLastError();
 }
 
@@ -390,8 +413,9 @@ static bool decode_shapes_ok(int H, int Hkv, int pps, int split_pages,
 
 // dtype: 0 = float32, 1 = bfloat16. q/o (B, H, hd), pools (num_pages,
 // page, Hkv, hd), table (B, pps) i32, lens (B,) i32, all contiguous, the
-// pools on 16 bytes; H / Hkv <= 16. ws: f32 workspace of B * H * n_split *
-// (hd + 2) floats, 16-byte aligned. Launches the split kernel and the
+// pools on 16 bytes; H / Hkv <= 16; hd a multiple of 16 up to 256
+// (attn_common.cuh). ws: f32 workspace of B * H * n_split * (hd + 2)
+// floats, 16-byte aligned. Launches the split kernel and the
 // combine kernel on `stream`. Returns a cudaError_t code.
 extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
                             const void* vp, const void* table,
@@ -404,13 +428,14 @@ extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<float, HD, false, float>(
-        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
-        n_split, scale, softcap, {}, s)));
+    ATTN_DISPATCH_HD(hd, HD, PAD,
+        err = (launch_decode<float, HD, PAD, false, float>(
+            q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
+            split_pages, n_split, scale, softcap, {}, s)));
   } else if (dtype == 1) {
-    ATTN_DISPATCH_HD(hd, HD,
-        err = (launch_decode<__nv_bfloat16, HD, false, __nv_bfloat16>(
-            q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps,
+    ATTN_DISPATCH_HD(hd, HD, PAD,
+        err = (launch_decode<__nv_bfloat16, HD, PAD, false, __nv_bfloat16>(
+            q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
             split_pages, n_split, scale, softcap, {}, s)));
   }
   return static_cast<int>(err);
@@ -438,23 +463,26 @@ extern "C" int paged_insert_decode(int dtype, int new_dtype, int hd,
     const InsertRows<float, float> ins{
         static_cast<const float*>(kn), static_cast<const float*>(vn),
         static_cast<float*>(kp), static_cast<float*>(vp)};
-    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<float, HD, true, float>(
-        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
-        n_split, scale, softcap, ins, s)));
+    ATTN_DISPATCH_HD(hd, HD, PAD,
+        err = (launch_decode<float, HD, PAD, true, float>(
+            q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
+            split_pages, n_split, scale, softcap, ins, s)));
   } else if (dtype == 1 && new_dtype == 1) {
     const InsertRows<BF, BF> ins{
         static_cast<const BF*>(kn), static_cast<const BF*>(vn),
         static_cast<BF*>(kp), static_cast<BF*>(vp)};
-    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<BF, HD, true, BF>(
-        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
-        n_split, scale, softcap, ins, s)));
+    ATTN_DISPATCH_HD(hd, HD, PAD,
+        err = (launch_decode<BF, HD, PAD, true, BF>(
+            q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
+            split_pages, n_split, scale, softcap, ins, s)));
   } else if (dtype == 1 && new_dtype == 0) {
     const InsertRows<BF, float> ins{
         static_cast<const float*>(kn), static_cast<const float*>(vn),
         static_cast<BF*>(kp), static_cast<BF*>(vp)};
-    ATTN_DISPATCH_HD(hd, HD, err = (launch_decode<BF, HD, true, float>(
-        q, kp, vp, table, lens, o, ws, B, H, Hkv, page, pps, split_pages,
-        n_split, scale, softcap, ins, s)));
+    ATTN_DISPATCH_HD(hd, HD, PAD,
+        err = (launch_decode<BF, HD, PAD, true, float>(
+            q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
+            split_pages, n_split, scale, softcap, ins, s)));
   }
   return static_cast<int>(err);
 }

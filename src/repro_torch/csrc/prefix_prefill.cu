@@ -29,6 +29,11 @@
 // tolerance. f32 stays on the CUDA cores in full precision
 // (attn_simt.cuh: 8 x 4 score and 8 x hd/16 output register tiles with
 // float4 reads; a two-stage ring; 184 KB, one block of 4 warps per SM).
+//
+// Head dims as flash_prefill.cu: instances of 16..256, a head dim below
+// its instance reads zeros in its padding columns and never stores them.
+// At hd 256 the bf16 ring has two stages and the f32 ring one, to stay
+// within a block's 227 KB of shared memory.
 #include "attn_simt.cuh"
 
 using namespace attn;
@@ -43,18 +48,19 @@ struct PrefixArgs {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   int H, Hkv, Sq, page, npp;
   float scale, softcap;
+  int hd;           // the head dim; the instance's HD >= hd (attn_common)
 };
 
 // The block's walk: n1 prefix tiles, then n2 suffix tiles. The live
 // part of the block table is staged in shared memory (`tab_s`, one read
 // of each entry), so the copies of a prefix tile wait on no global load.
-template <typename T, int HD>
+template <typename T, int HD, bool PAD>
 struct PrefixWalk {
   const T *qb, *kb, *vb, *kp, *vp;
   T* ob;
   const int* tab;
   int* tab_s;
-  int q0, kh, plen, slen, kv_end, n1, nt, page_shift;
+  int q0, kh, plen, slen, kv_end, n1, nt, page_shift, hd;
   long long row_elems;
 
   // The block serves query heads blockIdx.y * qh .. + qh - 1, all of one
@@ -62,6 +68,7 @@ struct PrefixWalk {
   __device__ PrefixWalk(const PrefixArgs<T>& a, int bq, int qh,
                         int* tab_smem) {
     tab_s = tab_smem;
+    hd = head_dim<HD, PAD>(a.hd);
     q0 = blockIdx.x * bq;
     const int h = blockIdx.y * qh, b = blockIdx.z;
     kh = h / (a.H / a.Hkv);
@@ -80,7 +87,7 @@ struct PrefixWalk {
     kv_end = max(0, min(min(slen, a.Sq), min(q0 + bq, a.Sq)));
     n1 = (plen + 63) / 64;
     nt = n1 + (kv_end + 63) / 64;
-    row_elems = (long long)a.Hkv * HD;
+    row_elems = (long long)a.Hkv * hd;
   }
 
   // Stage the live table entries; the caller synchronises before issue().
@@ -104,18 +111,20 @@ struct PrefixWalk {
                                         T* kd, T* vd, int ks, int vs) const {
     if (t < n1) {
       const int k0 = t * 64;
-      copy_kv_rows<T, HD, 64, NTHR>(kd, vd, ks, vs, kp, vp, [&](int r) {
+      copy_kv_rows<T, HD, 64, NTHR>(kd, vd, ks, vs, kp, vp, hd,
+                                    [&](int r) {
         const int pos = k0 + r;
         if (pos >= plen) return RowSrc{0, 0, false};
         const int pi = page_shift >= 0 ? pos >> page_shift : pos / a.page;
         const long long off =
             ((long long)tab_s[pi] * a.page + pos - pi * a.page) * row_elems +
-            (long long)kh * HD;
+            (long long)kh * hd;
         return RowSrc{off, off, true};
       });
     } else {
       const int k0 = (t - n1) * 64;
-      copy_kv_rows<T, HD, 64, NTHR>(kd, vd, ks, vs, kb, vb, [&](int r) {
+      copy_kv_rows<T, HD, 64, NTHR>(kd, vd, ks, vs, kb, vb, hd,
+                                    [&](int r) {
         const long long pos = k0 + r;
         if (pos >= kv_end) return RowSrc{0, 0, false};
         return RowSrc{pos * a.kss, pos * a.vss, true};
@@ -123,8 +132,8 @@ struct PrefixWalk {
     }
   }
 
-  // Issue the copies of the block's qh Q tiles (rows past Sq
-  // zero-filled); head i goes to Qs + i * tile.
+  // Issue the copies of the block's qh Q tiles (rows past Sq and columns
+  // past hd zero-filled); head i goes to Qs + i * tile.
   template <int NTHR>
   __device__ __forceinline__ void issue_q(const PrefixArgs<T>& a, T* Qs,
                                           int qs, int qh, int tile) const {
@@ -134,7 +143,7 @@ struct PrefixWalk {
     for (int i = 0; i < qh; ++i)
       for (int r = threadIdx.x / CPR; r < 64; r += NTHR / CPR) {
         T* dst = Qs + i * tile + r * qs + c;
-        if (q0 + r < a.Sq)
+        if (q0 + r < a.Sq && c < hd)
           cp_async16(dst, qb + i * a.qsh + (long long)(q0 + r) * a.qss + c);
         else
           zero16(dst);
@@ -142,22 +151,30 @@ struct PrefixWalk {
   }
 };
 
+// Stages of the bf16 kernel's K/V ring: QH + 1, but two at hd 256, where
+// a 64-row tile is 33 KB (three stages and two Q tiles would take 264 KB,
+// over the 227 KB a block may have).
+template <int HD, int QH>
+__host__ __device__ constexpr int mma_stages() {
+  return HD > 128 ? 2 : QH + 1;
+}
+
 // QH query heads of one kv head a block (4 warps each), so every K/V
 // tile copied serves QH x 64 query rows: at QH = 2 the copies move half
 // the bytes of one head a block. The ring has QH + 1 stages: at QH = 2
 // (one block per SM by registers) tile t + 2 is in flight while tile t
 // is computed; at QH = 1 two stages keep two blocks per SM.
-template <int HD, int QH>
+template <int HD, int QH, bool PAD>
 __global__ void __launch_bounds__(MMA_NT * QH, QH == 1 ? 2 : 1)
     prefix_prefill_mma_kernel(const PrefixArgs<bf16> a) {
   using L = MmaSmem<HD>;
   constexpr int NTHR = MMA_NT * QH;
-  constexpr int STAGES = QH + 1;
+  constexpr int STAGES = mma_stages<HD, QH>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + QH * L::TILE;
   bf16* Vs = Ks + STAGES * L::TILE;
-  const PrefixWalk<bf16, HD> w(
+  const PrefixWalk<bf16, HD, PAD> w(
       a, MMA_BQ, QH,
       reinterpret_cast<int*>(smem_raw + L::bytes(QH, STAGES)));
   const int warp = threadIdx.x / 32;
@@ -200,12 +217,12 @@ __global__ void __launch_bounds__(MMA_NT * QH, QH == 1 ? 2 : 1)
   }
   cp_async_wait<0>();
   bf16* ob = w.ob + hq * a.osh;
-  mma_store<HD>(st, a.Sq - w.q0 - wr0, [&](int r) {
+  mma_store<HD>(st, a.Sq - w.q0 - wr0, w.hd, [&](int r) {
     return ob + (long long)(w.q0 + wr0 + r) * a.oss;
   });
 }
 
-template <int HD>
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(SIMT_NT)
     prefix_prefill_simt_kernel(const PrefixArgs<float> a) {
   using L = SimtSmem<HD>;
@@ -215,27 +232,28 @@ __global__ void __launch_bounds__(SIMT_NT)
   float* Ks = sm + L::K_OFF;
   float* Vs = sm + L::V_OFF;
   float* Ps = sm + L::P_OFF;
-  const PrefixWalk<float, HD> w(
+  const PrefixWalk<float, HD, PAD> w(
       a, SIMT_BQ, 1, reinterpret_cast<int*>(smem_raw + L::BYTES));
 
   w.stage_table(a, SIMT_NT);
   __syncthreads();
   w.template issue_q<SIMT_NT>(a, Qs, L::QS, 1, 0);
-  if (w.nt > 0) w.template issue<SIMT_NT>(a, 0, Ks, Vs, L::KS, L::VS);
-  cp_async_commit();
+  auto issue = [&](int t) {
+    if (t < w.nt)
+      w.template issue<SIMT_NT>(a, t, Ks + (t % L::STAGES) * SIMT_BKV * L::KS,
+                                Vs + (t % L::STAGES) * SIMT_BKV * L::VS,
+                                L::KS, L::VS);
+    cp_async_commit();
+  };
+  issue(0);                // Q joins tile 0
   SimtState<HD> st;
   st.init();
   for (int t = 0; t < w.nt; ++t) {
     cp_async_wait<0>();
     __syncthreads();       // tile t landed; tile t - 1's buffers are free
-    if (t + 1 < w.nt)
-      w.template issue<SIMT_NT>(a, t + 1,
-                                Ks + ((t + 1) & 1) * SIMT_BKV * L::KS,
-                                Vs + ((t + 1) & 1) * SIMT_BKV * L::VS, L::KS,
-                                L::VS);
-    cp_async_commit();
-    const float* kt = Ks + (t & 1) * SIMT_BKV * L::KS;
-    const float* vt = Vs + (t & 1) * SIMT_BKV * L::VS;
+    if (L::STAGES == 2) issue(t + 1);   // in flight while t is computed
+    const float* kt = Ks + (t % L::STAGES) * SIMT_BKV * L::KS;
+    const float* vt = Vs + (t % L::STAGES) * SIMT_BKV * L::VS;
     if (t < w.n1) {
       const int k0 = t * 64;
       simt_attend<HD>(st, Qs, kt, vt, Ps, a.scale, a.softcap,
@@ -249,9 +267,13 @@ __global__ void __launch_bounds__(SIMT_NT)
                         return kpos <= w.q0 + r && kpos < w.slen;
                       });
     }
+    if (L::STAGES == 1) {  // one stage: the copy waits for the tile's use
+      __syncthreads();
+      issue(t + 1);
+    }
   }
   cp_async_wait<0>();
-  simt_store<HD>(st, a.Sq - w.q0, [&](int r) {
+  simt_store<HD>(st, a.Sq - w.q0, w.hd, [&](int r) {
     return w.ob + (long long)(w.q0 + r) * a.oss;
   });
 }
@@ -263,7 +285,7 @@ static PrefixArgs<T> make_args(const void* q, const void* ks, const void* vs,
                                const void* slens, void* o,
                                const long long* st, int H, int Hkv, int Sq,
                                int page, int npp, float scale,
-                               float softcap) {
+                               float softcap, int hd) {
   return PrefixArgs<T>{
       static_cast<const T*>(q), static_cast<const T*>(ks),
       static_cast<const T*>(vs), static_cast<const T*>(kp),
@@ -271,7 +293,7 @@ static PrefixArgs<T> make_args(const void* q, const void* ks, const void* vs,
       static_cast<const int*>(plens), static_cast<const int*>(slens),
       static_cast<T*>(o), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], H, Hkv, Sq, page, npp, scale,
-      softcap};
+      softcap, hd};
 }
 
 // Tiles, then the staged table (npp ints, rounded up to 16 bytes); qh
@@ -291,7 +313,8 @@ static cudaError_t launch(K kern, size_t tile_bytes, int qh, const A& args,
 // head, seq) for each of q, k_suf, v_suf, o; the pools are contiguous
 // (num_pages, page, Hkv, hd). q, k_suf, v_suf and the pools must start on
 // 16 bytes and their row strides be multiples of 16 bytes (the wrapper
-// checks). Returns a cudaError_t code.
+// checks). hd: a multiple of 16 up to 256 (attn_common.cuh). Returns a
+// cudaError_t code.
 extern "C" int prefix_prefill(int dtype, int hd, const void* q,
                               const void* ks, const void* vs, const void* kp,
                               const void* vp, const void* table,
@@ -304,23 +327,26 @@ extern "C" int prefix_prefill(int dtype, int hd, const void* q,
   if (dtype == 0) {
     const auto args = make_args<float>(q, ks, vs, kp, vp, table, plens,
                                        slens, o, strides, H, Hkv, Sq, page,
-                                       npp, scale, softcap);
-    ATTN_DISPATCH_HD(hd, HD, err = launch(prefix_prefill_simt_kernel<HD>,
-                                          SimtSmem<HD>::BYTES, 1, args, B,
-                                          H, Sq, s));
+                                       npp, scale, softcap, hd);
+    ATTN_DISPATCH_HD(hd, HD, PAD,
+                     err = launch(prefix_prefill_simt_kernel<HD, PAD>,
+                                  SimtSmem<HD>::BYTES, 1, args, B, H, Sq,
+                                  s));
   } else if (dtype == 1) {
     const auto args = make_args<bf16>(q, ks, vs, kp, vp, table, plens, slens,
                                       o, strides, H, Hkv, Sq, page, npp,
-                                      scale, softcap);
+                                      scale, softcap, hd);
     // two query heads a block where the group size allows
     if ((H / Hkv) % 2 == 0) {
-      ATTN_DISPATCH_HD(hd, HD, err = launch(prefix_prefill_mma_kernel<HD, 2>,
-                                            MmaSmem<HD>::bytes(2, 3), 2,
-                                            args, B, H, Sq, s));
+      ATTN_DISPATCH_HD(hd, HD, PAD,
+                       err = launch(prefix_prefill_mma_kernel<HD, 2, PAD>,
+                                    MmaSmem<HD>::bytes(2, mma_stages<HD, 2>()),
+                                    2, args, B, H, Sq, s));
     } else {
-      ATTN_DISPATCH_HD(hd, HD, err = launch(prefix_prefill_mma_kernel<HD, 1>,
-                                            MmaSmem<HD>::bytes(1, 2), 1,
-                                            args, B, H, Sq, s));
+      ATTN_DISPATCH_HD(hd, HD, PAD,
+                       err = launch(prefix_prefill_mma_kernel<HD, 1, PAD>,
+                                    MmaSmem<HD>::bytes(1, mma_stages<HD, 1>()),
+                                    1, args, B, H, Sq, s));
     }
   }
   return static_cast<int>(err);

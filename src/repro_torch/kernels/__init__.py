@@ -12,16 +12,21 @@ from typing import Dict
 
 def _launchers():
     from .flash_prefill.kernel import flash_prefill
-    from .paged_decode.kernel import paged_decode, paged_insert
+    from .paged_decode.kernel import (paged_decode, paged_insert,
+                                      paged_insert_decode)
     from .prefix_prefill.kernel import prefix_prefill
     from .ssd_scan.kernel import ssd_scan
     return {"paged_decode": paged_decode, "paged_insert": paged_insert,
+            "paged_insert_decode": paged_insert_decode,
             "prefix_prefill": prefix_prefill, "flash_prefill": flash_prefill,
             "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of each kernel since the last `reset_launch_counts`."""
+    """Launches of each kernel since the last `reset_launch_counts`.
+    `paged_insert_decode` counts the fused insert + decode calls, each of
+    which also counts once in `paged_decode` and in `paged_insert`; the
+    rest of `paged_insert` are standalone insert launches."""
     return {name: fn.launches for name, fn in _launchers().items()}
 
 

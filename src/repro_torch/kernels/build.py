@@ -140,7 +140,20 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims of the attention kernels' compiled instances (csrc/attn_common.cuh)
+HD_INSTANCES = (16, 32, 64, 128, 256)
+
+
+def head_dim_instance(name: str, hd: int) -> int:
+    """The compiled instance that runs head dim `hd` in the attention
+    kernels: the smallest of `HD_INSTANCES` at least `hd`, with the columns
+    past `hd` zero-filled on load and masked on store. `hd` must be a
+    multiple of 16 (whole 16-byte chunks of bf16) and at most 256; raise
+    ValueError otherwise."""
+    if hd % 16 or not HD_INSTANCES[0] <= hd <= HD_INSTANCES[-1]:
+        raise ValueError(f"{name}: head dim {hd} is not a multiple of 16 "
+                         f"in 16..256")
+    return next(i for i in HD_INSTANCES if hd <= i)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor):

@@ -14,14 +14,14 @@ import math
 
 import torch
 
-from ..build import (DTYPE_CODES, HEAD_DIMS, bhs_strides, check, library,
-                     require_aligned, require_cuda, stream_of)
+from ..build import (DTYPE_CODES, bhs_strides, check, head_dim_instance,
+                     library, require_aligned, require_cuda, stream_of)
 
 BQ = 64                 # query rows a consumer warpgroup (and a f32 block)
 
 
 def flash_heads_per_block(B: int, H: int, Hkv: int, Sq: int,
-                          sm_count: int = 132) -> int:
+                          sm_count: int = 132, hd: int = 128) -> int:
     """Query heads a block of the bf16 kernel serves, from shapes alone.
 
     Two query heads of one kv head (two consumer warpgroups that take
@@ -29,9 +29,10 @@ def flash_heads_per_block(B: int, H: int, Hkv: int, Sq: int,
     halve the blocks; they are taken where H / Hkv is even and the grid
     still has a block for at least 3/4 of the SMs. On an H100, yi-6b at
     S = 512 (128 blocks for 132 SMs) runs faster with two, at S = 200 (64
-    blocks) with one."""
+    blocks) with one. Head dims above 128 run on the 256 instance, whose
+    tiles leave shared memory for one query head only."""
     blocks = B * (H // 2) * -(-Sq // BQ)
-    if (H // Hkv) % 2 == 0 and 4 * blocks >= 3 * sm_count:
+    if hd <= 128 and (H // Hkv) % 2 == 0 and 4 * blocks >= 3 * sm_count:
         return 2
     return 1
 
@@ -50,13 +51,15 @@ def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("flash_prefill: f32/bf16 tensors of one dtype")
-    if hd not in HEAD_DIMS or H % Hkv:
-        raise ValueError(f"flash_prefill: unsupported hd={hd}, H={H}, "
+    head_dim_instance("flash_prefill", hd)
+    if H % Hkv:
+        raise ValueError(f"flash_prefill: H={H} is not a multiple of "
                          f"Hkv={Hkv}")
     out = torch.empty_like(q)       # keeps q's strides (dense views)
     require_aligned("flash_prefill", q, k, v, out)
     strides = bhs_strides(q, k, v, out)
-    qh = flash_heads_per_block(B, H, Hkv, Sq, _sm_count(q.device.index or 0))
+    qh = flash_heads_per_block(B, H, Hkv, Sq, _sm_count(q.device.index or 0),
+                               hd)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     check(library().flash_prefill(
         DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -12,8 +12,8 @@ import math
 
 import torch
 
-from ..build import (DTYPE_CODES, HEAD_DIMS, check, library, require_aligned,
-                     require_cuda, stream_of)
+from ..build import (DTYPE_CODES, check, head_dim_instance, library,
+                     require_aligned, require_cuda, stream_of)
 
 
 DEC_ROWS = 32          # kv positions a tile of the split kernel
@@ -53,8 +53,10 @@ def _check_decode(name, q, k_pages, v_pages, block_table, lens):
             or v_pages.dtype != q.dtype:
         raise TypeError(f"{name}: f32/bf16 of one dtype, got "
                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if hd not in HEAD_DIMS or H % Hkv or H // Hkv > DEC_GMAX:
-        raise ValueError(f"{name}: unsupported hd={hd}, H={H}, Hkv={Hkv}")
+    head_dim_instance(name, hd)
+    if H % Hkv or H // Hkv > DEC_GMAX:
+        raise ValueError(f"{name}: unsupported H={H}, Hkv={Hkv} (groups of "
+                         f"at most {DEC_GMAX})")
     if block_table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError(f"{name}: block_table and lens must be int32")
 
@@ -113,7 +115,8 @@ def paged_insert_decode(q, k_new, v_new, k_pages, v_pages, block_table,
     page); nothing where it is 0), in place, then `paged_decode`, in the
     split kernel's two launches. k/v_new are f32 or the pools' dtype and
     are rounded to the pools' dtype in the kernel. One call counts once
-    in `paged_decode.launches` and once in `paged_insert.launches`."""
+    in `paged_decode.launches`, in `paged_insert.launches` and in its own
+    `launches`."""
     name = "paged_insert_decode"
     _check_decode(name, q, k_pages, v_pages, block_table, lens)
     require_cuda(name, q, k_new, v_new)
@@ -137,7 +140,11 @@ def paged_insert_decode(q, k_new, v_new, k_pages, v_pages, block_table,
                          softcap, k_new, v_new)
     paged_decode.launches += 1
     paged_insert.launches += 1
+    paged_insert_decode.launches += 1
     return out
+
+
+paged_insert_decode.launches = 0
 
 
 def paged_insert(k_pages, v_pages, k_new, v_new, page_idx, offset):

@@ -14,8 +14,8 @@ import math
 
 import torch
 
-from ..build import (DTYPE_CODES, HEAD_DIMS, bhs_strides, check, library,
-                     require_aligned, require_cuda, stream_of)
+from ..build import (DTYPE_CODES, bhs_strides, check, head_dim_instance,
+                     library, require_aligned, require_cuda, stream_of)
 
 
 def prefix_prefill(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
@@ -31,8 +31,9 @@ def prefix_prefill(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
     if dt not in DTYPE_CODES or any(t.dtype != dt for t in
                                     (k_suf, v_suf, k_pages, v_pages)):
         raise TypeError("prefix_prefill: f32/bf16 tensors of one dtype")
-    if hd not in HEAD_DIMS or H % Hkv:
-        raise ValueError(f"prefix_prefill: unsupported hd={hd}, H={H}, "
+    head_dim_instance("prefix_prefill", hd)
+    if H % Hkv:
+        raise ValueError(f"prefix_prefill: H={H} is not a multiple of "
                          f"Hkv={Hkv}")
     if suffix_lens is None:
         suffix_lens = torch.full((B,), Sq, dtype=torch.int32, device=q.device)

@@ -1,7 +1,8 @@
 """Model facade (port of `repro/models/api.py`).
 
-The port covers the dense decoder on the paged KV path and the SSM family
-(`mamba_lm`) on the dense slab. Other families raise
+The port covers the dense decoder, on the paged KV path and on the dense
+slot slab (sliding-window and local-global archs on the slab only), and
+the SSM family (`mamba_lm`) on the slab. Other families raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -58,11 +59,7 @@ class Model:
         return _mod(self.cfg).forward(params, tokens, self.cfg, **kw)
 
     def decode_step(self, params, cache, tokens, *, plain=False):
-        """Dense-slab decode step (the SSM family's state, in place)."""
-        if not supports_slab(self.cfg):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the dense-slab decode_step is not ported "
-                f"yet (ROADMAP A7)")
+        """Dense-slab decode step (KV slabs or SSM state, in place)."""
         return _mod(self.cfg).decode_step(params, cache, tokens, self.cfg,
                                           plain=plain)
 
@@ -76,10 +73,6 @@ class Model:
 
     # ---- specs -------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        if not supports_slab(self.cfg):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the dense-slab cache is not ported yet "
-                f"(ROADMAP A7)")
         return _mod(self.cfg).cache_specs(self.cfg, batch, max_len, dtype)
 
     def paged_cache_specs(self, batch: int, num_pages: int, page_size: int,
@@ -102,8 +95,8 @@ def supports_paged(cfg) -> bool:
 
 def supports_slab(cfg) -> bool:
     """Whether the family's dense-slab decode (`decode_step` over
-    `cache_specs`) is ported: the SSM family so far; the transformer's is
-    ROADMAP A7."""
+    `cache_specs`) is ported: every ported family (the transformer and the
+    SSM), as the JAX engine runs any arch on the slab that is not paged."""
     return hasattr(_mod(cfg), "decode_step")
 
 

@@ -1,4 +1,4 @@
-"""Attention references in plain torch (port of `repro/models/attention.py`).
+"""Attention of the transformer (port of `repro/models/attention.py`).
 
 `flash_reference` is the blocked online-softmax oracle the JAX model runs
 for prefill: it visits only the (q_block, kv_block) tiles that intersect
@@ -6,13 +6,21 @@ the causal / sliding-window band and accumulates in f32. `dense_attention`
 is the naive O(S^2) oracle. Both take the model layout (B, S, H, hd). The
 port's prefill runs the `flash_prefill` kernel instead; these stay as the
 plain versions the tests and the kernel's CPU path are held against.
+
+`slab_attend` is the counterpart of JAX `decode_attend`: one query token
+per sequence over a dense slab cache (B, Smax, Hkv, hd). Where JAX
+computes it in jnp, the port views the slab as a page pool (no copy) and
+runs the `paged_decode` kernel over an identity block table.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
+
+from ..kernels.paged_decode.ops import paged_decode_op
 
 NEG_INF = -2.3819763e38  # finite "minus infinity" of the flash kernels
 
@@ -130,3 +138,52 @@ def dense_attention(q, k, v, *, causal=True, window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the dense slab as a page pool
+# ---------------------------------------------------------------------------
+
+def slab_page(smax: int) -> int:
+    """Rows a page of the slab's page view: the largest of 32, 16, 8, 4, 2
+    and 1 that divides `smax` (32 rows fill one tile of the decode kernel)."""
+    return next(p for p in (32, 16, 8, 4, 2, 1) if smax % p == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def slab_table(batch: int, smax: int, device: torch.device):
+    """The block table of a (batch, smax) slab's page view, the identity:
+    `table[b, j] = b * smax / page + j`, built once per shape and
+    device."""
+    pps = smax // slab_page(smax)
+    return torch.arange(batch * pps, dtype=torch.int32,
+                        device=device).reshape(batch, pps)
+
+
+def slab_pages(k_cache, v_cache):
+    """View a slab layer's caches (B, Smax, Hkv, hd), contiguous, as page
+    pools (B * Smax / page, page, Hkv, hd) without a copy, with the block
+    table that maps them back (`slab_table`). Returns (k_pages, v_pages,
+    table); writes into the pools land in the slab."""
+    B, smax, hkv, hd = k_cache.shape
+    page = slab_page(smax)
+    shape = (B * smax // page, page, hkv, hd)
+    return (k_cache.view(shape), v_cache.view(shape),
+            slab_table(B, smax, k_cache.device))
+
+
+def slab_attend(q, k_cache, v_cache, kv_len, *, scale: Optional[float] = None,
+                logit_softcap: float = 0.0, plain: bool = False):
+    """One-token attention against a slab cache (JAX `decode_attend` with
+    `window=0`). q: (B, H, hd); caches: (B, Smax, Hkv, hd); kv_len: (B,)
+    i32 valid slots. A ring cache (sliding window) holds the last Smax
+    tokens in rotation and is masked by slot validity alone, which is what
+    `kv_len = min(pos + 1, Smax)` gives: softmax does not depend on the
+    order of the keys. Runs the `paged_decode` kernel over the slab's page
+    view (its plain version on the CPU or with `plain`). -> (B, H, hd)."""
+    kp, vp, table = slab_pages(k_cache, v_cache)
+    lens = torch.broadcast_to(torch.as_tensor(kv_len, dtype=torch.int32,
+                                              device=q.device),
+                              (q.shape[0],)).contiguous()
+    return paged_decode_op(q, kp, vp, table, lens, scale=scale,
+                           softcap=logit_softcap, plain=plain)

@@ -31,10 +31,14 @@ def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
     }
 
 
-def forward(params, tokens, cfg, *, return_cache=False, plain: bool = False):
+def forward(params, tokens, cfg, *, return_cache=False, max_len=None,
+            attn_blocks=None, plain: bool = False):
     """tokens: (B, S) int. Returns (logits, cache, aux). With
     `return_cache`, only the last position's logits (B, 1, V) and the
-    cache `{"ssm", "conv", "pos"}` of `cache_specs`' layout."""
+    cache `{"ssm", "conv", "pos"}` of `cache_specs`' layout. `max_len`
+    and `attn_blocks` are taken, and unused, as in JAX (a constant-size
+    state, no attention): the engine passes them to every family."""
+    del max_len, attn_blocks
     x = embed_lookup(params["embed"], tokens.long())
     ssm, conv = [], {"x": [], "B": [], "C": []}
     for l in range(cfg.num_layers):

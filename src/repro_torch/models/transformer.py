@@ -1,19 +1,19 @@
-"""Decoder-only transformer, paged-KV path (port of
-`repro/models/transformer.py`).
+"""Decoder-only transformer (port of `repro/models/transformer.py`).
 
 Params keep the JAX layout: per-segment trees `seg{i}` whose leaves carry
 a leading layer axis, so weights carry over one for one
 (`repro_torch.weights.from_jax`). Layers run in a Python loop where JAX
 used `lax.scan`. Attention goes through the hand-written kernels:
 `flash_prefill` for a prefill from scratch, `prefix_prefill` for a
-prefill over pool pages, `paged_insert` + `paged_decode` (one fused
-launch on the card) for every decode step. Each op takes the plain
-version for CPU tensors; `plain=True` forces the plain version on any
-device (the reference of the whole-model check in `chip_smoke.py`).
+prefill over pool pages, and for every decode step `paged_insert` +
+`paged_decode`, over the paged pools (`decode_step_paged`) or over the
+dense slot slab viewed as pages (`decode_step`, `models/attention.py::
+slab_pages`). Each op takes the plain version for CPU tensors;
+`plain=True` forces the plain version on any device (the reference of
+the whole-model check in `chip_smoke.py`).
 
-Not ported yet: the dense-slab `decode_step`/`attn_decode` and the ring
-packing of windowed caches (ROADMAP A7), the dense `prefix_kv` branch
-(A8), MoE routed experts and VLM frontends (A9).
+Not ported yet: the dense `prefix_kv` branch (ROADMAP A8), MoE routed
+experts and VLM frontends (A9).
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..kernels.flash_prefill.ops import flash_prefill_op
-from ..kernels.paged_decode.ops import paged_insert_decode_op
+from ..kernels.paged_decode.ops import paged_insert_decode_op, paged_insert_op
 from ..kernels.prefix_prefill.ops import prefix_prefill_op
+from .attention import slab_attend, slab_page, slab_pages, slab_table
 from .common import (TensorSpec, apply_norm, apply_rope, embed_lookup,
                      layer_of, norm_params, param, rmsnorm)
 from .moe import dense_ffn_apply, dense_ffn_params
@@ -173,6 +174,53 @@ def attn_full(p, x, cfg, kind, positions, attn_blocks=(512, 512),
     return _out_proj(o, p["wo"]), (k, v)
 
 
+def slab_slots(pos, k_cache, ring: bool):
+    """Where a decode step writes and reads on a slab layer (B, Smax, Hkv,
+    hd), from the write cursors pos (B,) i32: attention covers slots <
+    lens = min(pos + 1, Smax); the new row goes to slot min(pos, Smax - 1)
+    = lens - 1 of a full cache, and to slot pos % Smax of a ring
+    (sliding-window) cache, which is page `table[b, slot // page]`, row
+    `slot % page` of its page view (`slab_pages`). Returns (lens,
+    page_idx, offset), the last two None for a full cache. The same for
+    every layer of a segment, so `decode_step` computes it once."""
+    B, smax = k_cache.shape[:2]
+    lens = torch.clamp(pos + 1, max=smax)
+    if not ring:
+        return lens, None, None
+    page = slab_page(smax)
+    slot = pos % smax
+    table = slab_table(B, smax, k_cache.device)
+    pidx = torch.gather(table, 1, (slot // page).long()[:, None])[:, 0]
+    return lens, pidx, (slot % page).to(torch.int32)
+
+
+def attn_decode(p, x, cfg, kind, k_cache, v_cache, pos, slots,
+                plain: bool = False):
+    """Single-token attention over one slab layer. x: (B, d); caches (B,
+    Smax, Hkv, hd), written in place; pos: (B,) i32 current write index;
+    `slots`: `slab_slots(pos, k_cache, ring)` of the layer's segment.
+    Returns the attention output (B, d).
+
+    On a full cache the write slot is the last live one, so one
+    `paged_insert_decode_op` writes and attends (one launch pair on the
+    card, as in `decode_step_paged`). On a ring cache past its window it
+    is not, so the row goes in through `paged_insert_op` and
+    `slab_attend` follows."""
+    q, k, v = _qkv(p, x[:, None], cfg, pos[:, None], _rope_theta(kind, cfg))
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    lens, pidx, off = slots
+    kp, vp, table = slab_pages(k_cache, v_cache)
+    if _is_windowed(kind, cfg):
+        paged_insert_op(kp, vp, k, v, pidx, off, plain=plain)
+        o = slab_attend(q, k_cache, v_cache, lens,
+                        logit_softcap=cfg.attn_logit_softcap, plain=plain)
+    else:
+        o = paged_insert_decode_op(q, k, v, kp, vp, table, lens,
+                                   softcap=cfg.attn_logit_softcap,
+                                   plain=plain)
+    return _out_proj(o, p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
@@ -245,9 +293,11 @@ def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
             if _is_windowed(seg.kind, cfg):
                 target = min(cfg.sliding_window, target)
             if S > target:
-                raise NotImplementedError("ring-packed window caches are "
-                                          "not ported yet (ROADMAP A7)")
-            if S < target:
+                # ring-pack the trailing `target` positions: position p
+                # lives in slot p % target, a roll of the tail
+                k_seg = torch.roll(k_seg[:, :, -target:], S % target, dims=2)
+                v_seg = torch.roll(v_seg[:, :, -target:], S % target, dims=2)
+            elif S < target:
                 pad = (0, 0, 0, 0, 0, target - S)
                 k_seg = torch.nn.functional.pad(k_seg, pad)
                 v_seg = torch.nn.functional.pad(v_seg, pad)
@@ -272,6 +322,35 @@ def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
 def unembed(params, x, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ w
+
+
+def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
+    """Dense-slab decode step. tokens: (B,) int. Returns (logits, cache).
+
+    The cache holds per-segment slabs `(layers, B, Smax, Hkv, hd)`, one
+    slot per sequence (`cache_specs`: Smax is the window for windowed
+    segments), and `pos`. Each layer writes the new token's K/V and
+    attends through `attn_decode`. The slabs and `pos` are updated in
+    place (JAX donated the cache and returned a new one); the same dict
+    comes back."""
+    x = embed_lookup(params["embed"], tokens.long())
+    if cfg.embedding_scale:
+        x = x * (cfg.d_model ** 0.5)
+    pos = cache["pos"]
+    for i, seg in enumerate(layer_plan(cfg)):
+        kc, vc = cache[f"seg{i}"]["k"], cache[f"seg{i}"]["v"]
+        slots = slab_slots(pos, kc[0], _is_windowed(seg.kind, cfg))
+        for l in range(seg.n):
+            pl = layer_of(params[f"seg{i}"], l)
+            h = apply_norm(x, pl["ln1"], cfg)
+            x = x + attn_decode(pl["attn"], h, cfg, seg.kind, kc[l], vc[l],
+                                pos, slots, plain=plain)
+            h = apply_norm(x, pl["ln2"], cfg)
+            x = x + dense_ffn_apply(pl["ffn"], h, cfg)
+    x = apply_norm(x, params["final_norm"], cfg)
+    logits = unembed(params, x, cfg)
+    pos.add_(1)
+    return logits, cache
 
 
 def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
@@ -334,5 +413,21 @@ def paged_cache_specs(cfg, batch: int, num_pages: int, page_size: int,
         out[f"seg{i}"] = {"k": TensorSpec(shp, dtype),
                           "v": TensorSpec(shp, dtype)}
     out["block_tables"] = TensorSpec((batch, pps), torch.int32)
+    out["pos"] = TensorSpec((batch,), torch.int32)
+    return out
+
+
+def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
+    """Shapes and dtypes of the dense-slab KV cache: per segment k/v
+    `(layers, batch, S, Hkv, hd)` with S = max_len, or min(window,
+    max_len) for a windowed segment (a ring); `pos` the per-slot write
+    cursor."""
+    out: Dict[str, Any] = {}
+    for i, seg in enumerate(layer_plan(cfg)):
+        S = (min(cfg.sliding_window, max_len) if _is_windowed(seg.kind, cfg)
+             else max_len)
+        shp = (seg.n, batch, S, cfg.num_kv_heads, cfg.head_dim)
+        out[f"seg{i}"] = {"k": TensorSpec(shp, dtype),
+                          "v": TensorSpec(shp, dtype)}
     out["pos"] = TensorSpec((batch,), torch.int32)
     return out

@@ -11,10 +11,16 @@ Prefill runs per request, right-padded to the JAX engine's length buckets
 and page buckets, so blob shapes and trash-padded tables match the JAX
 engine's.
 
-The SSM family runs on the dense slab: a `max_batch` cache of
-`Model.cache_specs`, one slot per resident sequence, exact-length prefill
-(its scan through the `ssd_scan` kernel) and `Model.decode_step`. Its
-migrated "KV" is the constant-size state.
+Every other engine runs on the dense slab: a `max_batch` cache of
+`Model.cache_specs`, one slot per resident sequence, and
+`Model.decode_step`. The slab prefill returns caches already at the
+slab's lengths (padded to `max_len`, windowed segments ring-packed), so
+the insert is a slot write. The transformer takes it with `paged=False`
+and for sliding-window and local-global archs, with bucketed prefill
+(`last_pos` picks the first token's row) unless the arch is
+exact-length; its decode runs `paged_decode` over the slab viewed as
+pages. The SSM family prefills at exact length (its scan through the
+`ssd_scan` kernel) and migrates its constant-size state.
 
 Step times are measured on the host clock after a device synchronise and
 accumulated on a virtual clock, so one host can emulate N concurrent
@@ -22,9 +28,8 @@ instances.
 
 The engine runs on the card (`device=None` means "cuda"; with no CUDA
 device it raises). `device="cpu"` runs every kernel's plain version, as
-the tests do. The transformer's dense slab (`paged=False`, and the
-windowed archs that need it) is ROADMAP A7; the dense-gather
-`fused_prefix=False` fallback is ROADMAP A8.
+the tests do. The dense-gather `fused_prefix=False` fallback is ROADMAP
+A8.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.api import build_model, supports_paged, supports_slab
+from ..models.api import build_model, supports_paged
 from .api import FINISH_LENGTH, FINISH_STOP, SamplingParams
 from .kv_cache import KVCacheManager, TRASH_PAGE
 from .prefix_cache import RadixPrefixCache
@@ -162,11 +167,6 @@ class Engine:
                           or cfg.sliding_window > 0)
         self.paged = supports_paged(cfg) if paged is None \
             else (paged and supports_paged(cfg))
-        if not self.paged and not supports_slab(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: the transformer's dense-slab engine "
-                f"(paged=False, sliding windows) is not ported yet "
-                f"(ROADMAP A7)")
         self.prefix_caching = bool(prefix_cache and self.paged)
         if self.prefix_caching and fused_prefix is not None \
                 and not fused_prefix:
@@ -406,11 +406,14 @@ class Engine:
         if self.paged:
             logits, cache = self._forward_chunk(padded, [], 0, S - 1)
         else:
-            # the slab families are exact-length: the last position's
-            # logits are the first token's
+            # the cache comes at the slab's lengths (the insert is a slot
+            # write); exact-length families take the last position's
+            # logits, the others the last real one's
+            kw = {} if self.exact_len else {"last_pos": S - 1}
             logits, cache, _ = self.model.forward(
                 self.params, torch.as_tensor(padded, device=self.device),
-                return_cache=True)
+                attn_blocks=self.attn_blocks, return_cache=True,
+                max_len=self.max_len, **kw)
         self._sync()
         dt = time.perf_counter() - t0
         self.clock += dt
@@ -665,7 +668,9 @@ class Engine:
     def _insert_kv_slab(self, seq: Sequence, cache, n_tok: int) -> int:
         """Write a batch-1 prefill cache into a free slot, in place: every
         leaf but `pos` has its batch on axis 1, after the layer axis (the
-        JAX engine finds the same axis from the shapes)."""
+        JAX engine finds the same axis from the shapes). A leaf whose
+        other axes are shorter than the slab's (a KV cache shorter than
+        `max_len`) fills their leading positions, as the JAX `merge`."""
         slot = self._slot_free.pop(0)
         seq.slot = slot
 
@@ -674,7 +679,9 @@ class Engine:
                 if isinstance(d, dict):
                     write(d, src[k])
                 elif k != "pos":
-                    d[:, slot] = src[k][:, 0].to(d.dtype)
+                    s = src[k][:, 0]
+                    lead = tuple(slice(0, n) for n in s.shape[1:])
+                    d[(slice(None), slot) + lead] = s.to(d.dtype)
         write(self._cache, cache)
         self._cache["pos"][slot] = n_tok
         return slot

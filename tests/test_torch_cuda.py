@@ -17,7 +17,7 @@ import torch
 
 from repro_torch import kernels as tk
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_op
-from repro_torch.kernels.build import HEAD_DIMS
+from repro_torch.kernels.build import HD_INSTANCES
 from repro_torch.kernels.paged_decode.ops import (paged_decode_op,
                                                   paged_insert_decode_op,
                                                   paged_insert_op)
@@ -407,11 +407,13 @@ def _insert_decode_check(args, dtype, live=None):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("hd", HD_INSTANCES + (48, 112))
 def test_paged_insert_decode_kernel_head_dims(cuda, hd, dtype):
-    """The fused kernel at every head dim, with splits of one page (many
-    splits, most of them not the owner) and writes at row 0 of a page,
-    mid page and the last row of a full table."""
+    """The fused kernel at every head dim instance and at two head dims
+    below theirs (48 on the 64 instance, zamba2-7b's 112 on the 128 one),
+    with splits of one page (many splits, most of them not the owner) and
+    writes at row 0 of a page, mid page and the last row of a full
+    table."""
     rng = np.random.default_rng(20 + hd)
     B, H, Hkv, page, pps = 4, 8, 2, 16, 6
     lens = [1, 17, 40, pps * page]
@@ -481,6 +483,181 @@ def test_paged_insert_decode_kernel_groups_and_pages(cuda, shape, dtype):
                                    softcap=5.0)
     _close(got, want, dtype)
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+
+
+# ---------------------------------------------------------------------------
+# head dims 112 (zamba2-7b) and 256 (gemma3-1b): any multiple of 16 up to
+# 256 runs on the next instance up, its padding columns zero-filled
+# ---------------------------------------------------------------------------
+WIDE_HDS = [112, 256]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", WIDE_HDS)
+@pytest.mark.parametrize("shape", [
+    # (B, H, Hkv, Sq, Skv, causal, window, softcap)
+    (1, 4, 1, 300, 300, True, 128, 0.0),      # gemma3-1b heads, a window
+    (2, 4, 4, 130, 130, True, 0, 20.0),       # MHA, soft cap, ragged S
+    (1, 4, 2, 70, 200, True, 0, 0.0),         # Sq < Skv
+])
+def test_flash_prefill_kernel_wide_head_dims(cuda, shape, hd, dtype,
+                                             monkeypatch):
+    """flash_prefill at hd 112 and 256 in the model's layout; in bf16 with
+    one and (hd 112, even groups) two query heads a block."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    B, H, Hkv, Sq, Skv, causal, window, cap = shape
+    rng = np.random.default_rng(30 + hd)
+    q = _t(rng, cuda, dtype, B, Sq, H, hd)
+    k = _t(rng, cuda, dtype, B, Skv, Hkv, hd)
+    v = _t(rng, cuda, dtype, B, Skv, Hkv, hd)
+    want = flash_prefill_op(q, k, v, causal=causal, window=window,
+                            softcap=cap, plain=True)
+    two = dtype == torch.bfloat16 and hd <= 128 and (H // Hkv) % 2 == 0
+    for qh in ((1, 2) if two else (1,)):
+        monkeypatch.setattr(fk, "flash_heads_per_block",
+                            lambda *shape, qh=qh, **_: qh)
+        before = tk.launch_counts()["flash_prefill"]
+        got = flash_prefill_op(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+        assert tk.launch_counts()["flash_prefill"] == before + 1
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", WIDE_HDS)
+def test_prefix_prefill_kernel_wide_head_dims(cuda, hd, dtype):
+    """prefix_prefill at hd 112 and 256: groups of 4 (two query heads a
+    bf16 block) and 1, a ragged suffix and trash-padded table slots."""
+    rng = np.random.default_rng(40 + hd)
+    for H, Hkv in ((4, 1), (4, 4)):
+        B, Sq, page, npp = 2, 100, 16, 8
+        q = _t(rng, cuda, dtype, B, Sq, H, hd)
+        k = _t(rng, cuda, dtype, B, Sq, Hkv, hd)
+        v = _t(rng, cuda, dtype, B, Sq, Hkv, hd)
+        kp = _t(rng, cuda, dtype, 1 + B * npp, page, Hkv, hd)
+        vp = _t(rng, cuda, dtype, 1 + B * npp, page, Hkv, hd)
+        kp[0], vp[0] = 50.0, -50.0
+        table = torch.arange(1, 1 + B * npp, dtype=torch.int32,
+                             device=cuda).reshape(B, npp)
+        table[1, 5:] = 0                     # trash past the live prefix
+        plens = torch.tensor([128, 70], dtype=torch.int32, device=cuda)
+        slens = torch.tensor([100, 61], dtype=torch.int32, device=cuda)
+        args = (q, k, v, kp, vp, table, plens, slens)
+        got = prefix_prefill_op(*args, softcap=10.0)
+        want = prefix_prefill_op(*args, softcap=10.0, plain=True)
+        torch.cuda.synchronize()
+        _close(got[0], want[0], dtype)
+        _close(got[1, :61], want[1, :61], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", WIDE_HDS)
+def test_paged_decode_kernel_wide_head_dims(cuda, hd, dtype):
+    """paged_decode at hd 112 and 256, groups of 4 and 16, soft cap on and
+    off, contexts of 1..the full table; two calls give identical bits."""
+    rng = np.random.default_rng(50 + hd)
+    for H, Hkv, cap in ((4, 1, 0.0), (32, 2, 5.0)):
+        B, page, pps = 4, 16, 24
+        q = _t(rng, cuda, dtype, B, H, hd)
+        kp = _t(rng, cuda, dtype, 1 + B * pps, page, Hkv, hd)
+        vp = _t(rng, cuda, dtype, 1 + B * pps, page, Hkv, hd)
+        table = torch.from_numpy((1 + rng.permutation(B * pps)).reshape(
+            B, pps).astype(np.int32)).to(cuda)
+        lens = torch.tensor([1, 200, 383, pps * page], dtype=torch.int32,
+                            device=cuda)
+        got = paged_decode_op(q, kp, vp, table, lens, softcap=cap)
+        again = paged_decode_op(q, kp, vp, table, lens, softcap=cap)
+        _close(got, paged_decode_ref(q, kp, vp, table, lens, softcap=cap),
+               dtype)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", WIDE_HDS)
+def test_paged_insert_kernel_wide_head_dims(cuda, hd, dtype):
+    """The standalone insert copies rows of any width: hd 112 and 256,
+    byte-exact against the plain version."""
+    rng = np.random.default_rng(60 + hd)
+    B, Hkv, pages, page = 4, 1, 8, 16
+    kp = _t(rng, cuda, dtype, pages, page, Hkv, hd)
+    vp = _t(rng, cuda, dtype, pages, page, Hkv, hd)
+    kn = _t(rng, cuda, dtype, B, Hkv, hd)
+    vn = _t(rng, cuda, dtype, B, Hkv, hd)
+    pidx = torch.tensor([3, 1, 7, 5], dtype=torch.int32, device=cuda)
+    off = torch.tensor([0, 7, 15, 3], dtype=torch.int32, device=cuda)
+    k2, v2 = kp.clone(), vp.clone()
+    before = tk.launch_counts()["paged_insert"]
+    paged_insert_op(kp, vp, kn, vn, pidx, off)
+    assert tk.launch_counts()["paged_insert"] == before + 1
+    paged_insert_ref(k2, v2, kn, vn, pidx, off)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, k2) and torch.equal(v2, vp)
+
+
+@pytest.mark.parametrize("hd", [120, 272])
+def test_attention_kernels_refuse_other_head_dims(cuda, hd):
+    """A head dim that is not a multiple of 16 (120) or is above 256 (272)
+    raises ValueError in each attention kernel's wrapper, before any
+    launch."""
+    z = lambda *shape: torch.zeros(shape, device=cuda)     # noqa: E731
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    tab = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    pool = z(4, 16, 1, hd)
+    with pytest.raises(ValueError):
+        flash_prefill_op(z(1, 64, 4, hd), z(1, 64, 1, hd), z(1, 64, 1, hd))
+    with pytest.raises(ValueError):
+        prefix_prefill_op(z(1, 64, 4, hd), z(1, 64, 1, hd), z(1, 64, 1, hd),
+                          pool, pool, tab, one)
+    with pytest.raises(ValueError):
+        paged_decode_op(z(1, 4, hd), pool, pool, tab, one)
+    with pytest.raises(ValueError):
+        paged_insert_decode_op(z(1, 4, hd), z(1, 1, hd), z(1, 1, hd), pool,
+                               pool, tab, one)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["local", "global"])
+def test_slab_attn_decode_kernels_vs_plain(cuda, kind, dtype):
+    """gemma3-1b's slab decode attention (4/1 heads, hd 256) through the
+    kernels against the plain versions on copies of one slab layer: a
+    512-slot ring (local: the standalone insert at pos % 512, then
+    paged_decode over the slab's page view) and a 2048-slot slab (global:
+    the fused insert + decode), B=8 with pos before and past the window.
+    The output projection is the identity (d = H * hd), so the attention
+    output is held to the tolerance itself; the slabs must be byte-equal
+    after the insert."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config("gemma3-1b"), d_model=1024)
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    rng = np.random.default_rng(71)
+    p = {"wq": _t(rng, cuda, dtype, d, H, hd) * d ** -0.5,
+         "wk": _t(rng, cuda, dtype, d, Hkv, hd) * d ** -0.5,
+         "wv": _t(rng, cuda, dtype, d, Hkv, hd) * d ** -0.5,
+         "wo": torch.eye(d, device=cuda, dtype=dtype).reshape(H, hd, d),
+         "q_norm": _t(rng, cuda, dtype, hd) * 0.1,
+         "k_norm": _t(rng, cuda, dtype, hd) * 0.1}
+    smax = 512 if kind == "local" else 2048
+    B = 8
+    kc = _t(rng, cuda, dtype, B, smax, Hkv, hd)
+    vc = _t(rng, cuda, dtype, B, smax, Hkv, hd)
+    k2, v2 = kc.clone(), vc.clone()
+    x = _t(rng, cuda, dtype, B, d)
+    pos = torch.tensor([0, 3, 200, 511, 512, 700, 1531, 1600],
+                       dtype=torch.int32, device=cuda)
+    slots = tf.slab_slots(pos, kc, kind == "local")
+    before = tk.launch_counts()
+    got = tf.attn_decode(p, x, cfg, kind, kc, vc, pos, slots)
+    after = tk.launch_counts()
+    assert after["paged_decode"] == before["paged_decode"] + 1
+    assert after["paged_insert"] == before["paged_insert"] + 1
+    fused = after["paged_insert_decode"] - before["paged_insert_decode"]
+    assert fused == (0 if kind == "local" else 1)
+    want = tf.attn_decode(p, x, cfg, kind, k2, v2, pos, slots, plain=True)
+    _close(got, want, dtype)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
 
 
 # ssd_scan: f32 as the JAX sweep (tests/test_kernels.py:237); in bf16 both

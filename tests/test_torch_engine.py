@@ -152,11 +152,6 @@ def test_default_device_is_the_card():
 
 def test_unported_engine_paths_raise_naming_the_roadmap(params):
     _, tp = params
-    with pytest.raises(NotImplementedError, match="A7"):
-        tx_engine.Engine(CFG, tp, device="cpu", paged=False)
     with pytest.raises(NotImplementedError, match="A8"):
         tx_engine.Engine(CFG, tp, device="cpu", prefix_cache=True,
                          fused_prefix=False)
-    gemma = get_config("gemma3-1b-smoke")        # sliding window: slab path
-    with pytest.raises(NotImplementedError, match="A7"):
-        tx_engine.Engine(gemma, device="cpu")

@@ -19,7 +19,8 @@ from repro.kernels.prefix_prefill.ref import \
     prefix_prefill_ref as jx_prefix_ref
 from repro.models import attention as jx_attn
 from repro_torch import kernels as tk
-from repro_torch.kernels.build import KernelError, bhs_strides
+from repro_torch.kernels.build import (KernelError, bhs_strides,
+                                      head_dim_instance)
 from repro_torch.kernels.flash_prefill import kernel as flash_kernel
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_op
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
@@ -333,6 +334,7 @@ def test_cuda_launchers_refuse_cpu_tensors_without_counting():
     paged_decode_op(q, pool, pool, tab, lens)
     flash_prefill_op(q4, q4[:, :, :2], q4[:, :, :2])
     assert tk.launch_counts() == {"paged_decode": 0, "paged_insert": 0,
+                                  "paged_insert_decode": 0,
                                   "prefix_prefill": 0, "flash_prefill": 0,
                                   "ssd_scan": 0}
     assert issubclass(KernelError, RuntimeError)
@@ -353,7 +355,9 @@ def test_kernel_strides_read_model_layout_views():
 def test_flash_heads_per_block_is_a_function_of_shapes():
     """The bf16 kernel serves two query heads of one kv head a block where
     the group size is even and the grid still has a block for 3/4 of the
-    SMs; otherwise one (yi-6b: 32 heads over 4 kv heads)."""
+    SMs; otherwise one (yi-6b: 32 heads over 4 kv heads). Head dims above
+    128 (gemma3-1b's 256) always take one: two would not fit in shared
+    memory."""
     hpb = flash_kernel.flash_heads_per_block
     assert hpb(1, 32, 4, 1024) == 2           # 16 pairs x 16 q tiles
     assert hpb(1, 32, 4, 512) == 2            # 16 x 8 = 128 blocks
@@ -361,6 +365,8 @@ def test_flash_heads_per_block_is_a_function_of_shapes():
     assert hpb(2, 32, 4, 200) == 2
     assert hpb(8, 6, 2, 1024) == 1            # a group of 3
     assert hpb(1, 32, 4, 512, sm_count=200) == 1
+    assert hpb(8, 32, 4, 1024, hd=112) == 2   # the 128 instance
+    assert hpb(8, 8, 2, 1024, hd=256) == 1
 
 
 def test_bhs_strides_of_size_one_dims_are_16_byte_units():
@@ -371,3 +377,36 @@ def test_bhs_strides_of_size_one_dims_are_16_byte_units():
     st = list(bhs_strides(x))
     assert st[2] == x.stride(2)
     assert all(s * 2 % 16 == 0 for s in st)
+
+
+@pytest.mark.parametrize("hd,instance", [(16, 16), (32, 32), (48, 64),
+                                         (64, 64), (112, 128), (128, 128),
+                                         (144, 256), (256, 256)])
+def test_head_dim_instance_is_the_next_one_up(hd, instance):
+    """Any multiple of 16 up to 256 runs on the smallest compiled instance
+    that holds it (the kernels zero-fill and mask the columns between)."""
+    assert head_dim_instance("op", hd) == instance
+
+
+@pytest.mark.parametrize("hd", [0, 8, 120, 272, 512])
+def test_head_dim_instance_refuses_other_head_dims(hd):
+    with pytest.raises(ValueError, match="head dim"):
+        head_dim_instance("op", hd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [112, 256])
+def test_plain_versions_match_jax_at_wide_head_dims(hd, dtype):
+    """zamba2-7b's hd 112 and gemma3-1b's hd 256: the plain versions the
+    kernels are held against match the JAX oracles (flash_prefill under a
+    window, paged_decode over a GQA group of 4, prefix_prefill)."""
+    rng = np.random.default_rng(hd)
+    jq, tq = _pair(_normal(rng, 1, 4, 40, hd), dtype)
+    jk, tk_ = _pair(_normal(rng, 1, 1, 40, hd), dtype)
+    jv, tv = _pair(_normal(rng, 1, 1, 40, hd), dtype)
+    _close(flash_prefill_ref(tq, tk_, tv, causal=True, window=16),
+           jx_flash_ref(jq, jk, jv, causal=True, window=16), dtype)
+    j, t = _decode_inputs((3, 4, 1, hd, 12, 8, 4), dtype, seed=hd)
+    _close(paged_decode_ref(*t), jx_decode_ref(*j), dtype)
+    j, t = _prefix_inputs((1, 4, 1, 24, hd, 8, 8, 3), dtype, seed=hd)
+    _close(prefix_prefill_ref(*t), jx_prefix_ref(*j), dtype)

@@ -18,7 +18,7 @@ from repro.serving.cluster import DisaggCluster as JDisagg
 from repro_torch.configs import get_config
 from repro_torch.core.workload import Request
 from repro_torch.models import mamba_lm as tx_lm
-from repro_torch.models.api import build_model, supports_slab
+from repro_torch.models.api import build_model
 from repro_torch.serving import engine as tx_engine
 from repro_torch.serving.cluster import ColocatedCluster, DisaggCluster
 from repro_torch.weights import from_jax
@@ -120,15 +120,6 @@ def test_cache_specs_match_jax():
             assert tuple(ts.shape) == js.shape
             assert str(ts.dtype).split(".")[-1] == js.dtype.name
     assert build_model(CFG).cache_specs(3, 64)["ssm"].dtype == torch.float32
-
-
-def test_transformer_slab_calls_raise_naming_a7():
-    yi = get_config("yi-6b-smoke")
-    assert supports_slab(CFG) and not supports_slab(yi)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_model(yi).cache_specs(1, 32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_model(yi).decode_step({}, {}, torch.zeros(1))
 
 
 def _serve(mod, eng, prompts, out_len=5):
