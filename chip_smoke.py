@@ -77,12 +77,34 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    (c) for information, a `torch.profiler` trace of one batch-8 slab
    decode step, which must hold one split kernel a layer and one
    standalone insert a ring layer.
+9. the planning stack and the launcher, yi-6b at full width: (a) time
+   one bf16 `Engine`'s own step times (from-scratch prefills of
+   `HOST_PREFILL` and `FIT_PREFILL` tokens, decode steps of `FIT_DECODE`
+   sequences over ~1000-token contexts; median of `FIT_REPS` after a
+   warm-up), fit the H100 `Chip` (`core/h100.py::fit_chip`: the compute
+   form on the device-bound `FIT_PREFILL`, then `hbm_eff` on the decode
+   steps) and print every point against the fresh fit and the committed
+   Chip; fails if a fitted value is not finite or
+   an efficiency lies outside (0, 1]. (b) Plan sharegpt at rate 8 with
+   Alg. 2 and Alg. 1 on the H100 Chip (one node of two cards) and serve
+   the launcher's trace (`LIVE`) through `launch/serve.py::serve_live`
+   with the low-affinity plan (f32, one copy of the weights for every
+   engine); fails unless all 12 finish, the migrated bytes are the sum of
+   `kv_bytes` and the four attention kernels launched. (c) The same
+   cluster under `EngineCharge(LatencyModel(cfg, H100))` against the
+   port's `SimDisaggBackend`: on the rate-20 trace the count of equal
+   requests is printed; the same requests spaced `SPACED_GAP_S` apart
+   must give every TTFT and TPOT equal to the float. (d) `FleetRouter`
+   (prefix affinity) over two such clusters with the prefix cache, on
+   `serve_trace`, against the same router over two `SimDisaggBackend`s:
+   the `decisions` lists must be equal.
 
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -114,7 +136,11 @@ SOURCES = {
 PATHS = {"yi-6b": ("paged_decode", "paged_insert", "prefix_prefill",
                    "flash_prefill"),
          "mamba2-2.7b": ("ssd_scan",),
-         "gemma3-1b": ("flash_prefill", "paged_decode", "paged_insert")}
+         "gemma3-1b": ("flash_prefill", "paged_decode", "paged_insert"),
+         "launch.serve": ("paged_decode", "paged_insert", "prefix_prefill",
+                          "flash_prefill"),
+         "router": ("paged_decode", "paged_insert", "prefix_prefill",
+                    "flash_prefill")}
 # the summary line's rows: (name, kernel, path, kernel-phase row)
 SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
            ("paged_insert", "paged_insert", "yi-6b", "paged_insert"),
@@ -126,7 +152,11 @@ SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
            ("paged_decode@gemma3-1b", "paged_decode", "gemma3-1b",
             "slab_ring_decode_gemma3_b8"),
            ("paged_insert@gemma3-1b", "paged_insert", "gemma3-1b",
-            "paged_insert_gemma3_b8")]
+            "paged_insert_gemma3_b8")] + [
+    (f"{k}@{path}", k, path, k)
+    for path in ("launch.serve", "router")
+    for k in ("paged_decode", "paged_insert", "prefix_prefill",
+              "flash_prefill")]
 # whole-model bf16 check: kernel-path logits within this fraction of the
 # plain path's largest |logit|. Both paths run the same bf16 matmuls; they
 # differ only in where attention rounds to bf16 and in the f32 summation
@@ -1403,6 +1433,361 @@ def gemma_profile(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the planning stack and the launcher (yi-6b at full width)
+# ---------------------------------------------------------------------------
+
+# from-scratch prefill lengths. On an H100 a bf16 yi-6b prefill of up to
+# ~2000 tokens is host-bound (37-48 ms of launches whatever L), where the
+# latency model's additive compute form cannot hold, so the fit's first
+# stage takes device-bound lengths (each its own bucket: no padding) and
+# the host-bound ones are predicted, not fitted
+FIT_PREFILL = (4096, 5120, 6144, 8192)
+HOST_PREFILL = (256, 512, 1024, 1536)
+FIT_DECODE = (1, 2, 4, 8)               # decode batches over ~1000 tokens
+FIT_REPS = 5                            # median of 5 after a warm-up
+# the launcher phase's requests: the CLI's `--live` trace (rate 20, 12
+# requests) at full width, prompts clipped to 1536, outputs to 32
+LIVE = dict(max_batch=8, max_len=2048, lm_tokens=512, chunk_tokens=512,
+            max_in=1536, max_out=32, n=12, rate=20.0)
+# phase 9c's spaced trace: each request arrives this many virtual seconds
+# after the one before, long after it finished (checked), so no migration
+# reaches a decode instance mid-step
+SPACED_GAP_S = 5.0
+
+
+def median_step(fn, reps=FIT_REPS):
+    fn()                                            # warm-up
+    gc.collect()
+    return statistics.median(fn() for _ in range(reps))
+
+
+def fit_phase(cfg):
+    """9a. Fit the H100 `Chip`: time the bf16 yi-6b Engine's own step
+    times (the ones a cluster charges), fit `core/h100.py::fit_chip` and
+    print every point against the fresh fit and the committed Chip."""
+    import torch
+    from repro_torch.core.h100 import H100, fit_chip
+    from repro_torch.core.latency_model import LatencyModel, Parallelism
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Engine, Sequence
+
+    params = build_model(cfg).cast(init_params(cfg), torch.bfloat16, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, params, max_batch=8, max_len=8256,
+                 dtype=torch.bfloat16, device="cuda")
+    rng = __import__("numpy").random.default_rng(1)
+
+    def prompt(L):
+        return rng.integers(1, cfg.vocab_size, L).tolist()
+
+    prefill, host = [], []
+    for L in HOST_PREFILL + FIT_PREFILL:
+        toks = prompt(L)
+        (prefill if L in FIT_PREFILL else host).append((L, median_step(
+            lambda: eng.prefill_request(Sequence(0, list(toks), 1))[2])))
+    seqs = []
+    for i in range(8):
+        seq = Sequence(100 + i, prompt(1000 + 4 * i), 1000)
+        first, blob, _ = eng.prefill_request(seq)
+        seq.append_token(first)
+        eng.insert_kv(seq, blob)
+        seqs.append(seq)
+    decode = []
+    for b in FIT_DECODE:
+        batch = seqs[:b]
+        eng.decode_step(batch)                      # warm-up
+        gc.collect()
+        pts = []
+        for _ in range(FIT_REPS):
+            ctx = sum(len(s.tokens) - 1 for s in batch)
+            pts.append((eng.decode_step(batch), ctx))
+        dt, ctx = sorted(pts)[FIT_REPS // 2]
+        decode.append((b, ctx, dt))
+    del eng, params, seqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fitted = fit_chip(cfg, prefill, decode, base=H100)
+    lms = {"fit": LatencyModel(cfg, fitted), "committed": LatencyModel(cfg, H100)}
+    par = Parallelism()
+    points = []
+    for L, t in host + prefill:
+        pred = {k: lm.prefill_time([L], par) for k, lm in lms.items()}
+        points.append(dict(step="prefill", L=L, s=t, fitted=(L, t) in prefill,
+                           **{f"{k}_s": v for k, v in pred.items()}))
+    for b, ctx, t in decode:
+        pred = {k: lm.decode_time(b, ctx, par) for k, lm in lms.items()}
+        points.append(dict(step="decode", B=b, ctx=ctx, s=t, **{
+            f"{k}_s": v for k, v in pred.items()}))
+    for p in points:
+        what = (f"prefill L={p['L']}" + ("" if p["fitted"] else
+                                         " (host-bound, not fitted)")
+                if p["step"] == "prefill" else
+                f"decode B={p['B']} ctx={p['ctx']}")
+        log(f"fit {what}: measured {p['s'] * 1e3:.3f} ms, fit "
+            f"{p['fit_s'] * 1e3:.3f} ms ({p['fit_s'] / p['s'] - 1:+.1%}), "
+            f"committed {p['committed_s'] * 1e3:.3f} ms "
+            f"({p['committed_s'] / p['s'] - 1:+.1%})")
+    fields = ("mm_eff", "attn_eff", "hbm_eff", "step_overhead")
+    out = {f: {"fit": getattr(fitted, f), "committed": getattr(H100, f)}
+           for f in fields}
+    log("fit H100 Chip: " + ", ".join(
+        f"{f} {v['fit']:.6g} (committed {v['committed']:.6g})"
+        for f, v in out.items()))
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"fit: total_memory {total} (committed hbm_bytes "
+        f"{H100.hbm_bytes:.0f})")
+    bad = [f for f in fields if not math.isfinite(getattr(fitted, f))]
+    bad += [f for f in fields[:3] if not 0.0 < getattr(fitted, f) <= 1.0]
+    if bad:
+        raise SystemExit(f"fit: {sorted(set(bad))} not finite or an "
+                         f"efficiency outside (0, 1]: the form or the "
+                         f"flop/byte count is wrong")
+    return dict(points=points, chip=out, total_memory=total)
+
+
+def _served(res, reqs, cfg, what):
+    """Fail unless every request came back finished and well formed."""
+    finished = [r for r in res.values() if r.finish >= 0
+                and r.finish_reason != "failed"]
+    for req in reqs:
+        r = res[req.rid]
+        if len(r.tokens) != req.in_len + req.out_len or \
+                not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise SystemExit(f"{what}: request {req.rid} came back "
+                             f"malformed")
+    if len(res) != len(reqs) or len(finished) != len(reqs):
+        raise SystemExit(f"{what}: {len(finished)}/{len(reqs)} finished")
+    return len(finished)
+
+
+def plan_serve_phase(cfg, params):
+    """9b. Plan yi-6b / sharegpt at rate 8 with both searches on the H100
+    Chip (one node of two cards), then serve the launcher's trace at full
+    width through `launch/serve.py::serve_live` with the low-affinity
+    plan. The four attention kernels' launches are read from this run."""
+    import torch
+    from repro_torch.core.h100 import H100
+    from repro_torch.core.kv_transfer import kv_bytes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import live_trace, plan, serve_live
+
+    plans = {}
+    for algo in ("low", "high"):
+        t0 = time.perf_counter()
+        _, spec, placement = plan(cfg, "sharegpt", 8.0, algo, n_node=1,
+                                  m_per_node=2, n_requests=200, chip=H100)
+        secs = time.perf_counter() - t0
+        plans[algo] = dict(summary=placement.summary(), seconds=secs)
+        log(f"plan {algo}: {secs:.2f}s {json.dumps(placement.summary())}")
+        if algo == "low":
+            low = placement
+    log(f"plan: slo_ttft {spec.slo_ttft:.6f}s slo_tpot {spec.slo_tpot:.6f}s")
+    reqs = live_trace(spec, LIVE["n"], LIVE["rate"], LIVE["max_in"],
+                      LIVE["max_out"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res, cluster = serve_live(cfg, low, spec, params=params, device="cuda",
+                              **LIVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want_bytes = sum(kv_bytes(cfg, r.in_len) for r in reqs)
+    out = dict(plans=plans, slo_ttft_s=spec.slo_ttft,
+               slo_tpot_s=spec.slo_tpot, n_prefill=len(cluster.prefill),
+               n_decode=len(cluster.decode), submitted=len(reqs),
+               served=len(res), finished=_served(res, reqs, cfg, "launch"),
+               ttft_median_s=statistics.median(r.ttft for r in res.values()),
+               tpot_median_s=statistics.median(r.tpot for r in res.values()),
+               kv_bytes_migrated=cluster.tx.total_bytes,
+               kv_bytes_expected=want_bytes, launches=counts, wall_s=wall,
+               memory_allocated=torch.cuda.memory_allocated(),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"launch {cfg.name} f32 ({out['n_prefill']} prefill + "
+        f"{out['n_decode']} decode engines, one copy of the weights): "
+        f"served={out['served']}/{len(reqs)} finished={out['finished']} "
+        f"ttft_median={out['ttft_median_s']:.4f}s "
+        f"tpot_median={out['tpot_median_s']:.4f}s (virtual clock) "
+        f"kv_bytes_migrated={cluster.tx.total_bytes} (expected {want_bytes}"
+        f") wall={wall:.2f}s max_memory_allocated="
+        f"{out['max_memory_allocated'] / 2**30:.2f} GiB")
+    log("launch kernels " + json.dumps(counts))
+    if cluster.tx.total_bytes != want_bytes:
+        raise SystemExit("launch: migrated bytes are not the sum of kv_bytes")
+    zero = [k for k in PATHS["launch.serve"] if counts[k] <= 0]
+    if zero:
+        raise SystemExit(f"launch: kernels never launched: {zero}")
+    del cluster, res
+    return out, spec, low
+
+
+def _times(backend):
+    return {rid: (r.ttft, r.tpot) for rid, r in backend.results.items()}
+
+
+def charged_phase(cfg, params, spec, placement):
+    """9c. The launcher's cluster under `EngineCharge(LatencyModel(cfg,
+    H100))` against the port's `SimDisaggBackend`, same lm_tokens,
+    chunking, transfer bandwidth and decode batch. On the launcher's rate
+    20 trace the count of equal requests is printed: the JAX package's own
+    live cluster and simulator differ there (a live decode instance pulls
+    a migrant's KV at its next poll, the simulator at dispatch;
+    `tests/test_torch_plan.py`). The same requests spaced `SPACED_GAP_S`
+    apart must give each request's TTFT and TPOT equal to the float."""
+    import torch
+    from repro_torch.core.h100 import H100
+    from repro_torch.core.latency_model import (EngineCharge, LatencyModel,
+                                                Parallelism)
+    from repro_torch.core.simulator import InstanceConfig, SimDisaggBackend
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import live_trace, serve_live
+    from repro_torch.serving.cluster import DisaggCluster
+
+    lm = LatencyModel(cfg, H100)
+    par = Parallelism()
+    kw = {k: LIVE[k] for k in ("max_batch", "max_len", "lm_tokens",
+                               "chunk_tokens")}
+    reqs = live_trace(spec, LIVE["n"], LIVE["rate"], LIVE["max_in"],
+                      LIVE["max_out"])
+    spaced = [dataclasses.replace(r, arrive=SPACED_GAP_S * (i + 1))
+              for i, r in enumerate(reqs)]
+
+    out = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res, dense = serve_live(cfg, placement, spec, params=params,
+                            device="cuda", charge=EngineCharge(lm, par),
+                            **LIVE)
+    _served(res, reqs, cfg, "charged")
+    n_p, n_d = len(dense.prefill), len(dense.decode)
+    bw = dense.tx.bandwidth
+
+    def sim(trace):
+        b = SimDisaggBackend(lm, InstanceConfig(par, n_p),
+                             InstanceConfig(par, n_d), transfer_bw=bw,
+                             lm_tokens=kw["lm_tokens"],
+                             chunk_tokens=kw["chunk_tokens"],
+                             max_decode_batch=kw["max_batch"])
+        for r in trace:
+            b.submit(dataclasses.replace(r))
+        b.drain()
+        return b
+
+    want, got = _times(sim(reqs)), _times(dense)
+    out["rate20_equal"] = sum(got[i] == want[i] for i in want)
+    log(f"charged {cfg.name} rate-20 trace: {out['rate20_equal']}/"
+        f"{len(want)} requests with TTFT and TPOT equal to the sim's "
+        f"(information: the reference's live/sim difference)")
+    del dense, res
+    live = DisaggCluster(cfg, params, n_prefill=n_p, n_decode=n_d,
+                         charge=EngineCharge(lm, par), device="cuda", **kw)
+    for r in spaced:
+        live.submit(dataclasses.replace(r))
+    live.drain()
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    s = sim(spaced)
+    got, want = _times(live), _times(s)
+    _served(live.results, spaced, cfg, "charged")
+    overlap = [r.rid for r in spaced[1:]
+               if live.states[r.rid - 1].request.finish >= r.arrive]
+    equal = sum(got[i] == want[i] for i in want)
+    out.update(spaced_equal=equal, n=len(want),
+               ttft_s={i: got[i][0] for i in sorted(got)},
+               tpot_s={i: got[i][1] for i in sorted(got)},
+               decisions_equal=live.dispatcher.decisions == s.disp.decisions)
+    log(f"charged {cfg.name} spaced trace ({SPACED_GAP_S}s apart): "
+        f"{equal}/{len(want)} requests with TTFT and TPOT equal to the "
+        f"float to the sim's; dispatch decisions equal "
+        f"{out['decisions_equal']}; ttft_median "
+        f"{statistics.median(v[0] for v in got.values()):.6f}s tpot_median "
+        f"{statistics.median(v[1] for v in got.values()):.6f}s")
+    log("charged kernels " + json.dumps(out["launches"]))
+    if overlap:
+        raise SystemExit(f"charged: requests {overlap} arrived before the "
+                         f"one ahead finished")
+    if equal != len(want) or not out["decisions_equal"]:
+        bad = sorted(i for i in want if got[i] != want[i])
+        raise SystemExit(f"charged: requests {bad} differ from the sim: "
+                         f"{[(got[i], want[i]) for i in bad[:3]]}")
+    del live
+    return out
+
+
+def router_phase(cfg, params):
+    """9d. `FleetRouter(policy="prefix_affinity")` over two full-width
+    yi-6b `DisaggCluster`s (1 + 1 engines each, prefix cache, one copy of
+    the weights, the H100 charge) against the same router over two
+    `SimDisaggBackend`s, on `serve_trace` (8 requests, five sharing a
+    384-token system prompt): the `decisions` lists must be equal."""
+    import torch
+    from repro_torch.core.h100 import H100
+    from repro_torch.core.latency_model import (EngineCharge, LatencyModel,
+                                                Parallelism)
+    from repro_torch.core.simulator import InstanceConfig, SimDisaggBackend
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.cluster import DisaggCluster
+    from repro_torch.serving.router import FleetRouter
+
+    lm = LatencyModel(cfg, H100)
+    par = Parallelism()
+    kw = dict(max_batch=8, lm_tokens=512, chunk_tokens=512,
+              prefix_cache=True)
+    live = [DisaggCluster(cfg, params, n_prefill=1, n_decode=1, max_len=2048,
+                          charge=EngineCharge(lm, par), seed=i,
+                          device="cuda", **kw) for i in range(2)]
+    log(f"router: 4 engines built, memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    sim_kw = dict(kw, max_decode_batch=kw["max_batch"])
+    del sim_kw["max_batch"]
+    sims = [SimDisaggBackend(lm, InstanceConfig(par, 1),
+                             InstanceConfig(par, 1),
+                             transfer_bw=live[0].tx.bandwidth, **sim_kw)
+            for _ in range(2)]
+    reqs = serve_trace(cfg.vocab_size)
+    routers, results = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for fleet in (live, sims):
+        fr = FleetRouter(fleet, policy="prefix_affinity")
+        for r in reqs:
+            fr.submit(dataclasses.replace(r))
+        results.append(fr.drain())
+        routers.append(fr)
+        if fleet is live:
+            torch.cuda.synchronize()
+            counts = launch_counts()
+    res, sres = results
+    hits = [c.prefill[0].prefix_hit_tokens for c in live]
+    same_ttft = sum(res[i].ttft == sres[i].ttft for i in sres)
+    out = dict(submitted=len(reqs), served=len(res),
+               finished=_served(res, reqs, cfg, "router"),
+               decisions=routers[0].decisions,
+               decisions_equal=routers[0].decisions == routers[1].decisions,
+               prefix_hit_tokens=hits, ttft_equal_to_sim=same_ttft,
+               ttft_median_s=statistics.median(r.ttft for r in res.values()),
+               tpot_median_s=statistics.median(r.tpot for r in res.values()),
+               launches=counts)
+    log(f"router {cfg.name} x2 replicas: served={len(res)}/{len(reqs)} "
+        f"decisions {routers[0].decisions}; equal to the sim fleet's "
+        f"{out['decisions_equal']}; prefix-hit tokens per replica {hits}; "
+        f"{same_ttft}/{len(sres)} TTFTs equal to the sim's; ttft_median "
+        f"{out['ttft_median_s']:.6f}s")
+    log("router kernels " + json.dumps(counts))
+    if not out["decisions_equal"]:
+        raise SystemExit(f"router: decisions differ from the sim fleet's: "
+                         f"{routers[1].decisions}")
+    zero = [k for k in PATHS["router"] if counts[k] <= 0]
+    if zero:
+        raise SystemExit(f"router: kernels never launched: {zero}")
+    del live, routers
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def ptxas_summary(build_log: Path) -> str:
     """Registers per kernel instance and the instances that spill, from
@@ -1521,9 +1906,24 @@ def main() -> int:
     record["check_gemma"] = gemma_check(gcfg, params)
     record["profile_gemma"] = gemma_profile(gcfg, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the planning stack and the launcher: yi-6b at full width ---------
+    record["fit"] = fit_phase(cfg)
+    params = init_params(cfg)
+    record["launch"], spec, placement = plan_serve_phase(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["charged"] = charged_phase(cfg, params, spec, placement)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["router"] = router_phase(cfg, params)
+    del params
 
     serves = {"yi-6b": record["serve"], "mamba2-2.7b": record["serve_mamba"],
-              "gemma3-1b": record["serve_gemma"]}
+              "gemma3-1b": record["serve_gemma"],
+              "launch.serve": record["launch"], "router": record["router"]}
     rows = []
     for name, kern, path, row in SUMMARY:
         src, replaces = SOURCES[kern]

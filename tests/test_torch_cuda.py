@@ -11,6 +11,8 @@ The shapes are those of the JAX package's kernel sweeps
 are those of `tests/test_kernels.py:16-17`; the SSD scan's f32 tolerance is
 that of its JAX sweep (`tests/test_kernels.py:237`, 3e-4).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -753,3 +755,100 @@ def test_ssd_scan_kernel_chunks_groups_and_h0(cuda, shape, dtype):
                                ry.float().cpu().numpy(), **SSD_TOLS[dtype])
     np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(),
                                **SSD_TOLS[torch.float32])
+
+
+# ---------------- the planning stack over live clusters on the card -------
+
+def _smoke_serving(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.core.h100 import H100
+    from repro_torch.core.latency_model import (EngineCharge, LatencyModel,
+                                                Parallelism)
+    from repro_torch.models.api import build_model
+    cfg = get_config("yi-6b-smoke")
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    lm = LatencyModel(cfg, H100)
+    return cfg, params, lm, EngineCharge(lm, Parallelism())
+
+
+def _smoke_trace(cfg, gap, n=8):
+    """Prompts of 20..70 tokens, the first five sharing a 24-token head,
+    arriving `gap` seconds apart."""
+    from repro_torch.core.workload import Request
+    rng = np.random.default_rng(0)
+    head = rng.integers(1, cfg.vocab_size, 24).tolist()
+    out = []
+    for i, L in enumerate([70, 40, 20, 55, 45, 30, 64, 26][:n]):
+        body = rng.integers(1, cfg.vocab_size, L).tolist()
+        toks = (head + body)[:L] if i < 5 else body
+        out.append(Request(i, gap * (i + 1), L, 4 + i % 5,
+                           tokens=tuple(toks)))
+    return out
+
+
+@pytest.mark.parametrize("chunk_tokens", [None, 32])
+def test_charged_live_cluster_matches_sim_on_card(cuda, chunk_tokens):
+    """A live `DisaggCluster` on the card under `EngineCharge(H100)` gives
+    the port's `SimDisaggBackend` timeline to the float, with the kernels
+    making the tokens. Arrivals 1 s apart: every migration reaches an idle
+    decode instance (the live cluster pulls at its next poll, the sim at
+    dispatch)."""
+    from repro_torch.core.latency_model import Parallelism
+    from repro_torch.core.simulator import InstanceConfig, SimDisaggBackend
+    from repro_torch.serving.cluster import DisaggCluster
+    cfg, params, lm, charge = _smoke_serving(cuda)
+    trace = _smoke_trace(cfg, 1.0)
+    live = DisaggCluster(cfg, params, n_prefill=2, n_decode=2, max_batch=4,
+                         max_len=96, lm_tokens=1, chunk_tokens=chunk_tokens,
+                         charge=charge, device=cuda)
+    sim = SimDisaggBackend(lm, InstanceConfig(Parallelism(), 2),
+                           InstanceConfig(Parallelism(), 2),
+                           transfer_bw=live.tx.bandwidth, lm_tokens=1,
+                           chunk_tokens=chunk_tokens, max_decode_batch=4,
+                           prefix_cache=False)
+    before = tk.launch_counts()
+    for b in (live, sim):
+        for r in trace:
+            b.submit(dataclasses.replace(r))
+        b.drain()
+    after = tk.launch_counts()
+    assert after["flash_prefill"] > before["flash_prefill"]
+    assert after["paged_decode"] > before["paged_decode"]
+    times = {rid: [e.t for e in st.events] for rid, st in live.states.items()}
+    assert times == {rid: [e.t for e in st.events]
+                     for rid, st in sim.states.items()}
+    assert live.dispatcher.decisions == sim.disp.decisions
+    assert all(len(r.tokens) == t.in_len + t.out_len
+               for r, t in zip((live.results[i] for i in range(8)), trace))
+
+
+def test_router_decisions_match_sim_fleet_on_card(cuda):
+    """Two live clusters on the card (prefix cache, 32-token chunks) behind
+    `FleetRouter(policy="prefix_affinity")` under the H100 charge route
+    the trace exactly as two `SimDisaggBackend`s do."""
+    from repro_torch.core.latency_model import Parallelism
+    from repro_torch.core.simulator import InstanceConfig, SimDisaggBackend
+    from repro_torch.serving.cluster import DisaggCluster
+    from repro_torch.serving.router import FleetRouter
+    cfg, params, lm, charge = _smoke_serving(cuda)
+    kw = dict(lm_tokens=1, chunk_tokens=32, prefix_cache=True)
+    live = [DisaggCluster(cfg, params, n_prefill=1, n_decode=1, max_batch=4,
+                          max_len=96, charge=charge, seed=i, device=cuda,
+                          **kw) for i in range(2)]
+    sims = [SimDisaggBackend(lm, InstanceConfig(Parallelism(), 1),
+                             InstanceConfig(Parallelism(), 1),
+                             transfer_bw=live[0].tx.bandwidth,
+                             max_decode_batch=4, **kw) for _ in range(2)]
+    routers = [FleetRouter(f, policy="prefix_affinity") for f in (live, sims)]
+    before = tk.launch_counts()["prefix_prefill"]
+    res = []
+    for fr in routers:
+        for r in _smoke_trace(cfg, 0.05):
+            fr.submit(r)
+        res.append(fr.drain())
+    assert routers[0].decisions == routers[1].decisions
+    assert {d[2] for d in routers[0].decisions if d[0] == "route"} == {0, 1}
+    assert sorted(res[0]) == sorted(res[1]) == list(range(8))
+    assert sum(c.prefill[0].prefix_hit_tokens for c in live) > 0
+    assert tk.launch_counts()["prefix_prefill"] > before
