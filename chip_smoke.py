@@ -31,7 +31,12 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    `paged_decode` over a 512-slot ring past the window), the standalone
    insert into the ring and `prefix_prefill`; zamba2-7b's attention (32/32
    heads of hd 112, on the 128 instance) in `flash_prefill`,
-   `paged_decode` and `prefix_prefill`.
+   `paged_decode` and `prefix_prefill`, and its `ssd_scan` (nh 112, N 64)
+   at S=1536; seamless-m4t-large-v2's non-causal `flash_prefill` (16/16
+   heads of hd 64) over 1024 frames and 64 target tokens over them, and
+   its cross-attention decode (`paged_decode` over the 1024-frame slab);
+   moonshot-v1-16b-a3b's group of 1 (16/16 heads of hd 128) in the three
+   attention kernels at the serve phase's shapes.
 3. serve yi-6b: `DisaggCluster` at full yi-6b width (random f32 weights
    from a seed, shared by both engines) serves a trace of 8 requests, some
    sharing a system prompt, with the prefix cache and 512-token chunked
@@ -98,6 +103,30 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    (prefix affinity) over two such clusters with the prefix cache, on
    `serve_trace`, against the same router over two `SimDisaggBackend`s:
    the `decisions` lists must be equal.
+10. serve moonshot-v1-16b-a3b in bf16 at full width (48 layers, 64
+   experts top-6 plus 2 shared; weights drawn a layer at a time): the
+   yi-6b trace with the prefix cache and 512-token chunks, fused, then
+   with `fused_prefix=False` (the dense-gather fallback); each fails
+   unless 8/8 finish, the attention kernels launched 48 times a chunk or
+   decode step by route, and the migrated bytes are the sum of
+   `kv_bytes` over the inserts (`moe_serve_counts`); the fallback's
+   tokens are compared with the fused run's.
+11. check moonshot: (a) as 4(a) on moonshot-smoke (prefix, chunks) and
+   mixtral-smoke (MoE on the slab); (b) teacher-forced logits, bf16 at
+   full depth and f32 at 4 layers, held to `MOE_ROUTING_FLOOR` and
+   `MOE_LOGIT_BOUND` (free run, then the plain path's routing replayed);
+   (c) a profile of one bf16 decode step with the MoE's share.
+12. serve zamba2-7b in f32 at full width on the slab (`ssd_scan` 81 and
+   `flash_prefill` 13 a prefill, the fused insert + decode 13 a step;
+   bytes the sum of `kv_bytes`); check: (a) smoke tokens, card against
+   CPU; (b) logits and prefill SSM state, kernels against plain
+   versions, f32 and bf16, held to `HYBRID_BOUNDS`.
+13. at the facade: seamless-m4t-large-v2 at full width and depth (1024
+   frames, a 64-token decoder prefill, 8 decode steps) and internvl2-76b
+   at full width cut to 4 layers (1024 frontend embeddings + 200 tokens,
+   8 decode steps on the slab): logits through the kernels against the
+   plain versions, f32 and bf16, held to `FACADE_BOUNDS`, and each
+   kernel's launches against the path's count.
 
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
@@ -140,8 +169,16 @@ PATHS = {"yi-6b": ("paged_decode", "paged_insert", "prefix_prefill",
          "launch.serve": ("paged_decode", "paged_insert", "prefix_prefill",
                           "flash_prefill"),
          "router": ("paged_decode", "paged_insert", "prefix_prefill",
-                    "flash_prefill")}
-# the summary line's rows: (name, kernel, path, kernel-phase row)
+                    "flash_prefill"),
+         "moonshot-v1-16b-a3b": ("paged_decode", "paged_insert",
+                                 "prefix_prefill", "flash_prefill"),
+         "zamba2-7b": ("ssd_scan", "flash_prefill", "paged_decode",
+                       "paged_insert"),
+         "seamless-m4t-large-v2": ("flash_prefill", "paged_decode",
+                                   "paged_insert"),
+         "internvl2-76b": ("flash_prefill", "paged_decode", "paged_insert")}
+# the summary line's rows: (name, kernel, path, kernel-phase row[, the
+# row's dtype, default float32: the dtype the path runs])
 SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
            ("paged_insert", "paged_insert", "yi-6b", "paged_insert"),
            ("prefix_prefill", "prefix_prefill", "yi-6b", "prefix_prefill"),
@@ -156,7 +193,25 @@ SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
     (f"{k}@{path}", k, path, k)
     for path in ("launch.serve", "router")
     for k in ("paged_decode", "paged_insert", "prefix_prefill",
-              "flash_prefill")]
+              "flash_prefill")] + [
+    ("paged_decode@moonshot-v1-16b-a3b", "paged_decode",
+     "moonshot-v1-16b-a3b", "paged_decode_moonshot_b8", "bfloat16"),
+    ("paged_insert@moonshot-v1-16b-a3b", "paged_insert",
+     "moonshot-v1-16b-a3b", "paged_insert_decode_moonshot_b8", "bfloat16"),
+    ("prefix_prefill@moonshot-v1-16b-a3b", "prefix_prefill",
+     "moonshot-v1-16b-a3b", "prefix_prefill_moonshot_p512", "bfloat16"),
+    ("flash_prefill@moonshot-v1-16b-a3b", "flash_prefill",
+     "moonshot-v1-16b-a3b", "flash_prefill_moonshot_s512", "bfloat16"),
+    ("ssd_scan@zamba2-7b", "ssd_scan", "zamba2-7b",
+     "ssd_scan_zamba2_s1536"),
+    ("flash_prefill@zamba2-7b", "flash_prefill", "zamba2-7b",
+     "flash_prefill_zamba2_s1024"),
+    ("paged_decode@zamba2-7b", "paged_decode", "zamba2-7b",
+     "paged_decode_zamba2_b8"),
+    ("flash_prefill@seamless-m4t-large-v2", "flash_prefill",
+     "seamless-m4t-large-v2", "flash_prefill_seamless_cross_s64"),
+    ("paged_decode@seamless-m4t-large-v2", "paged_decode",
+     "seamless-m4t-large-v2", "slab_decode_seamless_cross_b1")]
 # whole-model bf16 check: kernel-path logits within this fraction of the
 # plain path's largest |logit|. Both paths run the same bf16 matmuls; they
 # differ only in where attention rounds to bf16 and in the f32 summation
@@ -576,6 +631,40 @@ class Rows:
                 flash_kernel.flash_heads_per_block = chosen
         return r
 
+    def flash_nc(self, dtype, Sq, Skv):
+        """flash_prefill without the causal mask: Sq queries over Skv keys
+        (an encoder layer where Sq == Skv, a cross-attention layer
+        otherwise)."""
+        import torch
+        from repro_torch.kernels.flash_prefill.kernel import (
+            flash_heads_per_block, flash_prefill)
+        from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+        H, Hkv, hd = self.H, self.Hkv, self.hd
+        dn = dtype_name(dtype)
+        es = torch.empty((), dtype=dtype).element_size()
+        qf = self.randn(1, H, Sq, hd, dtype=dtype)
+        kf = self.randn(1, Hkv, Skv, hd, dtype=dtype)
+        vf = self.randn(1, Hkv, Skv, hd, dtype=dtype)
+        out = flash_prefill(qf, kf, vf, causal=False)
+        again = flash_prefill(qf, kf, vf, causal=False)
+        ref = flash_prefill_ref(qf, kf, vf, causal=False)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, dn)
+        same = bool(torch.equal(out, again))
+        return dict(
+            shape=f"Sq={Sq} Skv={Skv} non-causal {self.heads()}",
+            max_abs_err=err, ok=ok and same, repeat_identical=same,
+            ms=time_ms(lambda: flash_prefill(qf, kf, vf, causal=False)),
+            plain_ms=time_ms(lambda: flash_prefill_ref(qf, kf, vf,
+                                                       causal=False),
+                             iters=5),
+            library_ms=time_ms(lambda: sdpa(qf, kf, vf)),
+            library="scaled_dot_product_attention",
+            bytes=(2 * H * Sq * hd + 2 * Hkv * Skv * hd) * es,
+            flops=4 * Sq * Skv * H * hd,
+            heads_per_block=flash_heads_per_block(1, H, Hkv, Sq, self.sms,
+                                                  hd))
+
     def slab_decode(self, dtype, B, smax, pos, ring):
         """The slab decode attention of `models/transformer.py::
         attn_decode` over a (B, smax, Hkv, hd) slab layer viewed as pages
@@ -696,6 +785,11 @@ def finish_rows(rows, dn):
                          f"versions in {dn}")
 
 
+# the serve trace's prompt lengths at the first decode step (B=8 tables of
+# 128 pages), as the yi-6b rows take them
+SERVE_LENS = [1532, 1100, 903, 640, 517, 300, 200, 33]
+
+
 def kernel_phase(cfg, dtypes):
     """The four attention kernels at yi-6b's heads (32/4, hd 128): the
     PERF shapes and the serve phase's own."""
@@ -714,7 +808,7 @@ def kernel_phase(cfg, dtypes):
             trash=False)
         # the serve phase's shapes: B=8 tables of 128 pages, and B=1
         rows["paged_decode_serve_b8"] = R.decode(
-            dtype, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33],
+            dtype, 8, 128, SERVE_LENS,
             trash=True)
         rows["paged_decode_serve_b1"] = R.decode(dtype, 1, 128, [1500],
                                                  trash=True)
@@ -730,7 +824,7 @@ def kernel_phase(cfg, dtypes):
         del kp, vp
         # -- the decode path's fused insert + decode, at the serve shapes --
         rows["paged_insert_decode_serve_b8"] = R.insert_decode(
-            dtype, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33])
+            dtype, 8, 128, SERVE_LENS)
         rows["paged_insert_decode_serve_b1"] = R.insert_decode(
             dtype, 1, 128, [1500])
 
@@ -793,7 +887,7 @@ def wide_kernel_phase(gcfg, zcfg, dtypes):
         # -- zamba2-7b's attention shapes, hd 112 --------------------------
         rows["flash_prefill_zamba2_s1024"] = Z.flash(dtype, 1024)
         rows["paged_decode_zamba2_b8"] = Z.decode(
-            dtype, 8, 128, [1532, 1100, 903, 640, 517, 300, 200, 33],
+            dtype, 8, 128, SERVE_LENS,
             trash=True)
         rows["prefix_prefill_zamba2_p512"] = Z.prefix(dtype, 512, 512)
         finish_rows(rows, dn)
@@ -816,11 +910,15 @@ def ssd_flops_bytes(b, S, nh, hd, G, N, Q, es):
     return flops, nbytes
 
 
-def ssd_kernel_phase(cfg, dtypes):
-    """`ssd_scan` at the mamba2-2.7b main path's shapes: a 2048-token
-    prefill (8 chunks of 256), the traced 1536-token prefill (6 chunks)
-    and a 200-token prompt (one ragged chunk of 200); two identical calls
-    must give identical bits. Inputs have the distributions of the JAX sweep
+SSD_SHAPES = (("ssd_scan", 2048, 256), ("ssd_scan_s1536", 1536, 256),
+              ("ssd_scan_ragged", 200, 200))
+
+
+def ssd_kernel_phase(cfg, dtypes, shapes=SSD_SHAPES):
+    """`ssd_scan` at a main path's shapes, (row, S, chunk) each; for
+    mamba2-2.7b (`SSD_SHAPES`) a 2048-token prefill (8 chunks of 256),
+    the traced 1536-token prefill (6 chunks) and a 200-token prompt (one
+    ragged chunk of 200); two identical calls must give identical bits. Inputs have the distributions of the JAX sweep
     (tests/test_kernels.py::test_ssd_scan_sweep). No single PyTorch call
     computes an SSD scan, so there is no library yardstick."""
     import torch
@@ -842,9 +940,7 @@ def ssd_kernel_phase(cfg, dtypes):
         dn = str(dtype).split(".")[-1]
         es = torch.empty((), dtype=dtype).element_size()
         rows = {}
-        for key, S, Q in (("ssd_scan", 2048, 256),
-                          ("ssd_scan_s1536", 1536, 256),
-                          ("ssd_scan_ragged", 200, 200)):
+        for key, S, Q in shapes:
             x = randn(1, S, nh, hd).to(dtype)
             dt = torch.nn.functional.softplus(randn(1, S, nh)) * 0.1
             A = -torch.exp(randn(nh))
@@ -910,28 +1006,38 @@ def serve_trace(vocab, seed=0, n=8):
     return reqs
 
 
-def serve_phase(cfg, params, **cluster_kw):
+def serve_phase(cfg, params, path=None, **cluster_kw):
     """Serve `serve_trace` through `DisaggCluster` (1 prefill + 1 decode
     engine, 8 slots, max_len 2048, plus `cluster_kw`); the launch counts
     are set to 0 just before and read just after. Fails unless every
     request finishes well formed and every kernel of this model's path
-    (`PATHS`) launched. Also records the decode engine's steps and the
-    sizes (`Engine.kv_blob_bytes`) of the blobs whole-prompt prefills
-    returned."""
+    (`PATHS[path or cfg.name]`) launched. Also records the decode engine's
+    steps, the prefill engine's chunk and fused dispatches, the sizes
+    (`Engine.kv_blob_bytes`) of the blobs whole-prompt prefills returned,
+    the sum of `kv_bytes` over what each insert on the decode side took
+    (the prompt less its decode-side prefix hit) and every request's
+    tokens."""
     import torch
+    from repro_torch.core.kv_transfer import kv_bytes
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.cluster import DisaggCluster
 
     dc = DisaggCluster(cfg, params, n_prefill=1, n_decode=1, max_batch=8,
                        max_len=2048, **cluster_kw)
-    pre = dc.prefill[0]
-    blob_bytes = []
+    pre, dec = dc.prefill[0], dc.decode[0]
+    blob_bytes, shipped = [], []
 
     def prefill_request(seq, _run=pre.prefill_request):
         first, blob, dt = _run(seq)
         blob_bytes.append(pre.kv_blob_bytes(blob))
         return first, blob, dt
     pre.prefill_request = prefill_request
+
+    def insert_kv(seq, wire, shared=(), skip_tokens=0, _run=dec.insert_kv):
+        ship = wire[1] - skip_tokens
+        shipped.append(kv_bytes(cfg, ship) if ship else 0)
+        return _run(seq, wire, shared=shared, skip_tokens=skip_tokens)
+    dec.insert_kv = insert_kv
     reqs = serve_trace(cfg.vocab_size)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -952,8 +1058,13 @@ def serve_phase(cfg, params, **cluster_kw):
                prompt_tokens=sum(r.in_len for r in reqs),
                generated_tokens=sum(r.n_generated for r in res.values()),
                wall_s=wall, launches=counts,
-               decode_steps=dc.decode[0].steps, blob_bytes=sum(blob_bytes))
-    log(f"serve {cfg.name} f32: served={len(res)}/{len(reqs)} "
+               decode_steps=dc.decode[0].steps, blob_bytes=sum(blob_bytes),
+               kv_bytes_of_inserts=sum(shipped),
+               chunk_dispatches=pre.chunk_dispatches,
+               fused_dispatches=pre.fused_dispatches,
+               tokens={rid: list(r.tokens) for rid, r in res.items()})
+    dn = dtype_name(cluster_kw.get("dtype", torch.float32))
+    log(f"serve {cfg.name} {dn}: served={len(res)}/{len(reqs)} "
         f"finished={len(finished)} ttft_median={ttft:.4f}s "
         f"tpot_median={tpot:.4f}s (virtual clock) "
         f"kv_bytes_migrated={dc.tx.total_bytes} "
@@ -966,7 +1077,7 @@ def serve_phase(cfg, params, **cluster_kw):
             raise SystemExit(f"serve: request {rid} came back malformed")
     if len(finished) != len(reqs):
         raise SystemExit("serve: not every request finished")
-    zero = [k for k in PATHS[cfg.name] if counts[k] <= 0]
+    zero = [k for k in PATHS[path or cfg.name] if counts[k] <= 0]
     if zero:
         raise SystemExit(f"serve: kernels never launched on the main path: "
                          f"{zero}")
@@ -1050,16 +1161,21 @@ def standard_attention_scales(params, cfg):
     the softmax is a hard argmax, which bf16 rounding flips from one path
     to the other. With these scales the comparison measures the kernels,
     not that instability."""
+    for name, seg in params.items():
+        if name.startswith("seg"):
+            scale_attention(seg["attn"], cfg)
+
+
+def scale_attention(a, cfg):
+    """One attention block's projections (wq/wk/wv (d, heads, hd), wo (H,
+    hd, d), stacked or not) to the usual fan-in scales, in place (see
+    `standard_attention_scales`)."""
     import math as _m
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    for name, seg in params.items():
-        if not name.startswith("seg"):
-            continue
-        a = seg["attn"]
-        a["wq"].mul_(_m.sqrt(H / d))
-        a["wk"].mul_(_m.sqrt(Hkv / d))
-        a["wv"].mul_(_m.sqrt(Hkv / d))
-        a["wo"].mul_(1 / _m.sqrt(H))
+    a["wq"].mul_(_m.sqrt(H / d))
+    a["wk"].mul_(_m.sqrt(Hkv / d))
+    a["wv"].mul_(_m.sqrt(Hkv / d))
+    a["wo"].mul_(1 / _m.sqrt(H))
 
 
 def _compare(eng, tokens, what):
@@ -1177,11 +1293,13 @@ def mamba_check(cfg, params):
     return out
 
 
-def device_profile(fn, label):
+def device_profile(fn, label, annotation=None):
     """Run `fn` once under `torch.profiler` (after one untimed run) and
     print its host wall time, the device's busy time (the sum of its
     kernels' durations) and idle share, and the kernels that took most
-    time. For information; nothing is held to it."""
+    time; with `annotation`, the name of `record_function` ranges inside
+    `fn`, also their host time and the device time of the kernels they
+    launched. For information; nothing is held to it."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -1196,10 +1314,17 @@ def device_profile(fn, label):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.Counter()
     count = collections.Counter()
+    spans, kernels = [], []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
-            count[e.name] += 1
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if annotation and e.name == annotation:
+            # the range's span on the device timeline, not a kernel
+            spans.append((e.time_range.start, e.time_range.end))
+            continue
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        count[e.name] += 1
+        kernels.append((e.time_range.start, e.time_range.elapsed_us()))
     n = sum(count.values())
     busy = sum(by_name.values())
     top = [(k[:60], round(v, 3)) for k, v in by_name.most_common(5)]
@@ -1209,9 +1334,24 @@ def device_profile(fn, label):
     out = dict(wall_ms=wall_ms, device_busy_ms=busy, kernels=n,
                idle_share=1 - busy / wall_ms if wall_ms else None, top=top,
                ported_ms=ported, launches_by_kernel=dict(count))
+    extra = ""
+    if annotation:
+        ranges = [e for e in prof.events() if e.name == annotation
+                  and e.device_type != DeviceType.CUDA]
+        host = sum(e.cpu_time_total for e in ranges) / 1e3
+        # the kernels that start inside one of the ranges' device spans
+        dev = sum(us for t, us in kernels
+                  if any(a <= t < b for a, b in spans)) / 1e3
+        out[annotation] = dict(ranges=len(ranges), host_ms=host,
+                               device_ms=dev,
+                               host_share=host / wall_ms if wall_ms else None,
+                               device_share=dev / busy if busy else None)
+        extra = (f" {annotation}: ranges={len(ranges)} host={host:.3f}ms "
+                 f"device={dev:.3f}ms (device share "
+                 f"{out[annotation]['device_share'] or 0:.3f})")
     log(f"profile {label}: wall={wall_ms:.3f}ms device_busy={busy:.3f}ms "
         f"idle_share={out['idle_share']:.3f} kernels={n} top={top} "
-        f"ported_ms={ported}")
+        f"ported_ms={ported}{extra}")
     return out
 
 
@@ -1788,6 +1928,578 @@ def router_phase(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phases 10-13: the remaining model families (MoE, hybrid, encdec, VLM)
+# ---------------------------------------------------------------------------
+
+def family_kernel_phase(dtypes):
+    """The attention kernels at the new families' shapes:
+    seamless-m4t-large-v2's non-causal `flash_prefill` (16/16 heads of hd
+    64) over its encoder's 1024 frames and its cross-attention's 64 target
+    tokens over them; moonshot-v1-16b-a3b's group of 1 (16/16 heads of hd
+    128) in the three attention kernels at the serve phase's shapes.
+    (`ssd_scan` at zamba2-7b's shape runs in `ssd_kernel_phase`.)"""
+    import torch
+    E = Rows(16, 16, 64, 4567)
+    M = Rows(16, 16, 128, 5678)
+    results = {}
+    for dtype in dtypes:
+        dn = dtype_name(dtype)
+        rows = {
+            "flash_prefill_seamless_enc_t1024": E.flash_nc(dtype, 1024,
+                                                           1024),
+            "flash_prefill_seamless_cross_s64": E.flash_nc(dtype, 64, 1024),
+            "flash_prefill_moonshot_s512": M.flash(dtype, 512),
+            "prefix_prefill_moonshot_p512": M.prefix(dtype, 512, 512),
+            "paged_decode_moonshot_b8": M.decode(dtype, 8, 128, SERVE_LENS,
+                                                 trash=True),
+            "paged_insert_decode_moonshot_b8": M.insert_decode(
+                dtype, 8, 128, SERVE_LENS),
+            # a decode step's cross-attention: paged_decode over the
+            # 1024-frame cross-KV slab's page view, every slot live
+            "slab_decode_seamless_cross_b1": E.slab_decode(
+                dtype, 1, 1024, [1023], ring=True),
+        }
+        finish_rows(rows, dn)
+        results[dn] = rows
+        torch.cuda.empty_cache()
+    return results
+
+
+# moonshot-v1-16b-a3b teacher-forced logits, kernel path against plain
+# path. Top-k routing is discontinuous: where the two paths' hidden
+# states differ by bf16 rounding, a token whose 6th and 7th gates nearly
+# tie takes another expert on one path, its hidden state then moves by
+# more than rounding, and over 47 MoE layers such flips compound. So the
+# check has two parts. (1) Free run: the share of top-6 choices (every
+# MoE layer, every token) on which the two paths agree must reach
+# MOE_ROUTING_FLOOR. Chance agreement is 6/64 ~ 0.09, which is what a
+# wrong kernel (scrambled hidden states) gives; at full depth in bf16 a
+# correct one gave 0.942 on the H100 (first run of this phase: every
+# row then had a flip, and the first bound, 0.95 with rows held only
+# where no flip occurred, failed). (2) Replayed routing: the kernel path
+# again, each MoE layer taking the plain path's expert choices (weighted
+# by its own gates), so that only the attention kernels' rounding
+# differs; every row within MOE_LOGIT_BOUND of the plain path's largest
+# |logit| (bf16 as LOGIT_BOUND for yi-6b).
+MOE_LOGIT_BOUND = {"bfloat16": 0.1, "float32": 1e-3}
+MOE_ROUTING_FLOOR = {"bfloat16": 0.8, "float32": 0.99}
+# zamba2-7b, kernel path against plain path, as a fraction of the plain
+# path's largest |value| (logits; prefill SSM state), in the style of
+# MAMBA_BOUNDS. Its 13 shared-attention calls run at standard attention
+# scales (C1). f32: the scans' summation order over 81 layers (~2e-5 of
+# scale for mamba2-2.7b's 64) plus the attention kernels' f32 order;
+# bf16: the SSM's bf16 drift, as for mamba2-2.7b.
+HYBRID_BOUNDS = {"float32": 1e-3, "bfloat16": 0.25}
+# seamless-m4t-large-v2 and internvl2-76b at the facade, kernel path
+# against plain path, as a fraction of the plain path's largest |logit|,
+# at standard attention scales: bf16 as LOGIT_BOUND; f32 the kernels'
+# f32 summation order through 48 (4) layers.
+FACADE_BOUNDS = {"float32": 1e-3, "bfloat16": 0.1}
+
+
+class RoutingLog:
+    """While active, records each MoE layer call's top-k expert choices
+    (computed from the same router inputs as `models/moe._routed_core`):
+    a list of (T, k) index tensors in call order. With `replay` (such a
+    list), call i takes the choices `replay[i]` instead of its own."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.calls, self._orig = [], moe._routed_core
+
+        def rec(xf, router, wi, wo, cfg, capacity_factor=0.0):
+            if self.replay is not None:
+                topi = self.replay[len(self.calls)]
+            else:
+                gates = torch.softmax(xf.float() @ router.float(), dim=-1)
+                topi = torch.topk(gates, cfg.moe.num_experts_per_tok,
+                                  dim=-1).indices
+            self.calls.append(topi)
+            return self._orig(xf, router, wi, wo, cfg, capacity_factor,
+                              topi=topi)
+        moe._routed_core = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._routed_core = self._orig
+
+
+def routing_agreement(got, want, E, n_rows):
+    """(share of top-k choices the two call lists agree on, per row: did
+    the row's own token (the last of each call) take the same experts in
+    every layer). The calls split into `n_rows` stages of equal count."""
+    import torch
+    F = torch.nn.functional
+    agree, total = 0.0, 0
+    per_stage = len(got) // n_rows
+    clean = [True] * n_rows
+    for i, (a, b) in enumerate(zip(got, want)):
+        oa, ob = F.one_hot(a, E).sum(1), F.one_hot(b, E).sum(1)
+        tok = (oa * ob).sum(-1).float() / a.shape[1]          # (T,)
+        agree += float(tok.sum())
+        total += tok.numel()
+        if float(tok[-1]) < 1.0:
+            clean[i // per_stage] = False
+    return agree / total, clean
+
+
+def moe_logits_check(cfg, params, dtype, what):
+    """Teacher-forced over one prompt (a 512-token prefill from scratch,
+    a 256-token chunk over it, 8 decode steps) on an Engine's paged
+    cache, through the kernels and through the plain versions, then
+    through the kernels on the plain path's routing; held to
+    `MOE_ROUTING_FLOOR` and `MOE_LOGIT_BOUND` (see there)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import Engine
+
+    dn = dtype_name(dtype)
+    tokens = np.random.default_rng(17).integers(1, cfg.vocab_size,
+                                                768 + 8).tolist()
+    eng = Engine(cfg, params, dtype=dtype, max_batch=1, max_len=1024)
+    with RoutingLog() as rk:
+        got = teacher_force(eng, tokens, 512, 768, plain=False)
+    with RoutingLog() as rp:
+        want = teacher_force(eng, tokens, 512, 768, plain=True)
+    with RoutingLog(replay=rp.calls):
+        replayed = teacher_force(eng, tokens, 512, 768, plain=False)
+    torch.cuda.synchronize()
+    del eng
+    n_rows = want.shape[0]
+    share, clean = routing_agreement(rk.calls, rp.calls,
+                                     cfg.moe.num_experts, n_rows)
+    free_diff = (got - want).abs().amax(-1).tolist()
+    row_diff = (replayed - want).abs().amax(-1).tolist()
+    scale = float(want.abs().max())
+    r = dict(max_abs_logit=scale, max_abs_diff=max(row_diff),
+             row_max_abs_diff=row_diff, free_row_max_abs_diff=free_diff,
+             rows_routing_equal=clean, routing_agreement=share,
+             routing_floor=MOE_ROUTING_FLOOR[dn],
+             bound=MOE_LOGIT_BOUND[dn] * scale,
+             argmax_agree=float((replayed.argmax(-1) == want.argmax(-1))
+                                .float().mean()),
+             free_argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean()))
+    log(f"check {cfg.name} {dn} {what}: teacher-forced logits (prefill 512 "
+        f"+ chunk 256 + 8 decode steps), kernels vs plain versions. Free "
+        f"run: top-{cfg.moe.num_experts_per_tok} choices agree {share:.4f} "
+        f"(floor {r['routing_floor']}; chance "
+        f"{cfg.moe.num_experts_per_tok / cfg.moe.num_experts:.3f}), rows "
+        f"with every layer's choices equal {sum(clean)}/{n_rows}, row "
+        f"max_abs_diff {[round(d, 4) for d in free_diff]}, argmax_agree "
+        f"{r['free_argmax_agree']:.3f}. On the plain path's routing: "
+        f"max_abs_diff={r['max_abs_diff']:.4e} (bound {r['bound']:.4e} = "
+        f"{MOE_LOGIT_BOUND[dn]}*max_abs_logit {scale:.4e}), rows "
+        f"{[round(d, 4) for d in row_diff]}, argmax_agree "
+        f"{r['argmax_agree']:.3f}")
+    if not (share >= r["routing_floor"] and math.isfinite(r["max_abs_diff"])
+            and r["max_abs_diff"] <= r["bound"]):
+        raise SystemExit(f"check: {cfg.name} {dn} kernel path beyond the "
+                         f"bound")
+    return r
+
+
+def fallback_view_diff(cfg):
+    """For information: `prefix_prefill` in bf16 at the model's heads, a
+    512-token chunk over a 512-token prefix read from 16-row pool pages
+    (the fused path), against the same prefix gathered densely and read
+    through its 32-row page view (the `fused_prefix=False` path): the
+    largest difference, and whether the two are bit-equal."""
+    import torch
+    from repro_torch.kernels.prefix_prefill.kernel import prefix_prefill
+    from repro_torch.models.attention import slab_pages
+    gen = torch.Generator(device="cuda").manual_seed(6789)
+    H, Hkv, hd, bf = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+    q, k, v = randn(1, H, 512, hd), randn(1, Hkv, 512, hd), \
+        randn(1, Hkv, 512, hd)
+    kp, vp = randn(33, 16, Hkv, hd), randn(33, 16, Hkv, hd)
+    table = (torch.randperm(32, generator=gen, device="cuda") + 1)[None] \
+        .to(torch.int32)
+    plens = torch.tensor([512], dtype=torch.int32, device="cuda")
+    fused = prefix_prefill(q, k, v, kp, vp, table, plens)
+    dk = kp[table[0].long()].reshape(1, 512, Hkv, hd)
+    dv = vp[table[0].long()].reshape(1, 512, Hkv, hd)
+    gk, gv, gt = slab_pages(dk, dv)
+    dense = prefix_prefill(q, k, v, gk, gv, gt, plens)
+    torch.cuda.synchronize()
+    out = dict(page_rows=(16, gk.shape[1]),
+               max_abs_diff=float((fused.float() - dense.float()).abs()
+                                  .max()),
+               bit_equal=bool(torch.equal(fused, dense)))
+    log(f"prefix_prefill bf16 {cfg.name} heads, 512 over 512: 16-row pool "
+        f"pages vs the gather's {gk.shape[1]}-row page view: max_abs_diff "
+        f"{out['max_abs_diff']:.3e}, bit-equal {out['bit_equal']}")
+    return out
+
+
+def moe_serve_counts(cfg, serve, yi):
+    """The moonshot serve phase's launches and bytes against what its path
+    must give: per chunk of a prefill, one `flash_prefill` a layer when
+    the chunk starts from scratch, else one `prefix_prefill` a layer (the
+    fused path's dispatches: `prefix_prefill` = 48 x the fused
+    dispatches); `paged_decode` one a layer and decode step; migrated
+    bytes the sum of `kv_bytes` over what each decode-side insert took.
+    Printed beside them: the yi-6b serve's counts in this run scaled to 48
+    layers and 6x the KV bytes a token (the same trace and schedule would
+    give those)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.kv_transfer import kv_bytes
+    L = cfg.num_layers
+    c, steps = serve["launches"], serve["decode_steps"]
+    chunks, fused = serve["chunk_dispatches"], serve["fused_dispatches"]
+    got = {"flash_prefill+prefix_prefill": c["flash_prefill"]
+           + c["prefix_prefill"], "paged_decode": c["paged_decode"],
+           "paged_insert_decode": c["paged_insert_decode"]}
+    want = {"flash_prefill+prefix_prefill": L * chunks,
+            "paged_decode": L * steps, "paged_insert_decode": L * steps}
+    if fused:
+        got["prefix_prefill"] = c["prefix_prefill"]
+        want["prefix_prefill"] = L * fused
+    yl = yi["launches"]
+    ratio = kv_bytes(cfg, 1) // kv_bytes(get_config("yi-6b"), 1)
+    pred = dict(flash_prefill=yl["flash_prefill"] * L // 32,
+                prefix_prefill=yl["prefix_prefill"] * L // 32,
+                kv_bytes=yi["kv_bytes_migrated"] * ratio)
+    log(f"serve {cfg.name}: launches {got} over {chunks} chunks ({fused} "
+        f"fused) and {steps} decode steps (expected {want}); "
+        f"flash_prefill={c['flash_prefill']} prefix_prefill="
+        f"{c['prefix_prefill']} (yi-6b's in this run x 48/32: "
+        f"{pred['flash_prefill']} / {pred['prefix_prefill']}); kv bytes "
+        f"migrated {serve['kv_bytes_migrated']} (expected "
+        f"{serve['kv_bytes_of_inserts']}, the sum of kv_bytes over the "
+        f"inserts; yi-6b's x {ratio}: {pred['kv_bytes']}); the prefill "
+        f"blobs hold {serve['blob_bytes']} bytes")
+    serve.update(expected_launches=want, predicted=pred)
+    if got != want or serve["kv_bytes_migrated"] != \
+            serve["kv_bytes_of_inserts"]:
+        raise SystemExit(f"serve: {cfg.name} launches or bytes are off")
+
+
+def moe_profile(cfg, params):
+    """Where a moonshot-v1-16b-a3b bf16 decode step's time goes: one step
+    at batch 8 at the serve trace's prompt lengths on an Engine's paged
+    cache, with every MoE layer's `moe_apply` in a `record_function`
+    range (its host time and its kernels' device time)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, params, dtype=torch.bfloat16, max_batch=8,
+                 max_len=2048)
+    cache = eng._empty_cache()
+    pps = cache["block_tables"].shape[1]
+    for b, n in enumerate([1500, 640, 200, 1100, 900, 300, 1280, 520]):
+        cache["block_tables"][b] = torch.arange(1 + b * pps,
+                                                1 + (b + 1) * pps)
+        cache["pos"][b] = n
+    step = torch.randint(1, cfg.vocab_size, (8,), device=eng.device,
+                         generator=torch.Generator(device=eng.device)
+                         .manual_seed(5))
+    orig = transformer.moe_apply
+
+    def annotated(*a, **kw):
+        with torch.profiler.record_function("moe_apply"):
+            return orig(*a, **kw)
+    transformer.moe_apply = annotated
+    try:
+        out = device_profile(
+            lambda: eng.model.decode_step_paged(eng.params, cache, step),
+            f"{cfg.name} bf16 decode step, batch 8, contexts 200..1500",
+            annotation="moe_apply")
+    finally:
+        transformer.moe_apply = orig
+    del eng, cache
+    return out
+
+
+def moonshot_phase(cfg, yi_serve):
+    """10-11. moonshot-v1-16b-a3b at full width in bf16 (48 layers, 64
+    experts top-6 plus 2 shared, the first layer dense), its weights drawn
+    a layer at a time in bf16: the serve trace with the prefix cache and
+    512-token chunks, fused (`moe_serve_counts`), then with
+    `fused_prefix=False` (the dense-gather fallback; its tokens against
+    the fused run's); (a) smoke tokens, card against the CPU, for
+    moonshot-smoke (paged, prefix, chunks) and mixtral-smoke (MoE on the
+    slab, windowed); (b) teacher-forced logits at standard attention
+    scales, bf16 at full depth, then f32 with the depth cut to 4 layers
+    (`moe_logits_check`); (c) a profile of one bf16 decode step."""
+    import torch
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.bfloat16)
+    kw = dict(prefix_cache=True, chunk_tokens=512, dtype=torch.bfloat16)
+    out["serve"] = serve = serve_phase(cfg, params, **kw)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"serve {cfg.name} bf16: peak memory {out['peak_memory_gib']:.2f} "
+        f"GiB (weights and both engines' page pools)")
+    moe_serve_counts(cfg, serve, yi_serve)
+    out["serve_unfused"] = unf = serve_phase(cfg, params, fused_prefix=False,
+                                             **kw)
+    moe_serve_counts(cfg, unf, yi_serve)
+    same = sorted(r for r in serve["tokens"]
+                  if serve["tokens"][r] == unf["tokens"][r])
+    out["unfused_equal_requests"] = same
+    log(f"serve {cfg.name} bf16 fused_prefix=False: tokens equal to the "
+        f"fused run's on {len(same)}/{len(serve['tokens'])} requests "
+        f"{same}")
+    out["fallback_view"] = fallback_view_diff(cfg)
+    for r in (serve, unf):
+        r.pop("tokens")
+    out["check_tokens"] = smoke_tokens_check("moonshot-v1-16b-a3b-smoke",
+                                             prefix_cache=True,
+                                             chunk_tokens=16)
+    out["check_tokens_mixtral"] = smoke_tokens_check("mixtral-8x22b-smoke")
+    standard_attention_scales(params, cfg)
+    out["check_bf16"] = moe_logits_check(cfg, params, torch.bfloat16,
+                                         "full depth, standard attention "
+                                         "scales")
+    out["profile"] = moe_profile(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = cfg.replace(num_layers=4)
+    params = init_params(cut)
+    standard_attention_scales(params, cut)
+    out["check_f32_4_layers"] = moe_logits_check(
+        cut, params, torch.float32, "4 of 48 layers, standard attention "
+        "scales")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_serve_counts(cfg, serve):
+    """The zamba2-7b serve phase's launches and bytes against what its
+    path must give: per prefill `ssd_scan` once a mamba layer (81) and
+    `flash_prefill` once a shared-block call (13); per decode step the
+    fused insert + decode once a shared-block call; migrated bytes the
+    sum of `kv_bytes(cfg, prompt_len)` (13 layers of bf16 KV a token plus
+    81 layers of f32 SSM state, no conv state: the reference's
+    accounting). The real blob size is printed beside them."""
+    from repro_torch.core.kv_transfer import kv_bytes
+    n, steps, c = serve["submitted"], serve["decode_steps"], \
+        serve["launches"]
+    G = cfg.num_layers // cfg.hybrid_attn_every
+    want = {"ssd_scan": cfg.num_layers * n, "flash_prefill": G * n,
+            "paged_decode": G * steps, "paged_insert_decode": G * steps,
+            "paged_insert": G * steps}
+    got = {k: c[k] for k in want}
+    want_bytes = sum(kv_bytes(cfg, r.in_len)
+                     for r in serve_trace(cfg.vocab_size))
+    log(f"serve {cfg.name}: launches {got} over {n} prefills and {steps} "
+        f"decode steps (expected {want}); bytes migrated "
+        f"{serve['kv_bytes_migrated']} (expected {want_bytes}: kv_bytes, "
+        f"{G} layers of bf16 KV a token plus {cfg.num_layers} layers of "
+        f"f32 SSM state); the prefill blobs hold {serve['blob_bytes']} "
+        f"bytes (f32 state, conv state and KV slabs at max_len)")
+    serve.update(expected_launches=want, expected_kv_bytes=want_bytes)
+    serve.pop("tokens")
+    if got != want or serve["kv_bytes_migrated"] != want_bytes:
+        raise SystemExit(f"serve: {cfg.name} launches or bytes are off")
+
+
+def hybrid_teacher_force(model, params, tokens, n_prompt, plain):
+    """Prefill `tokens[:n_prompt]` (81 scans through `ssd_scan`, 13 shared
+    attention calls through `flash_prefill`) into a 1024-slot slab, then
+    one decode step per remaining token. Returns (every stage's logits in
+    f32, the prefill's SSM state)."""
+    import torch
+    toks = torch.as_tensor(tokens, device=params["embed"].device)[None]
+    lg, cache, _ = model.forward(params, toks[:, :n_prompt],
+                                 return_cache=True, max_len=1024,
+                                 plain=plain)
+    state = cache["ssm"].clone()
+    out = [lg[:, 0].float()]
+    for t in range(n_prompt, len(tokens)):
+        lg, cache = model.decode_step(params, cache, toks[:, t], plain=plain)
+        out.append(lg.float())
+    return torch.cat(out), state
+
+
+def hybrid_check(cfg, params):
+    """Full-width zamba2-7b, teacher-forced over 512 prompt tokens and 8
+    decode steps: logits and prefill SSM state through the kernels
+    against the plain versions, f32 and bf16 (a cast), each held to
+    `HYBRID_BOUNDS`."""
+    import numpy as np
+    import torch
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg)
+    tokens = np.random.default_rng(19).integers(1, cfg.vocab_size,
+                                                512 + 8).tolist()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        p = model.cast(params, dtype, params["embed"].device)
+        got, got_h = hybrid_teacher_force(model, p, tokens, 512, False)
+        want, want_h = hybrid_teacher_force(model, p, tokens, 512, True)
+        torch.cuda.synchronize()
+        del p
+        r = dict(max_abs_diff=float((got - want).abs().max()),
+                 max_abs_logit=float(want.abs().max()),
+                 state_max_abs_diff=float((got_h - want_h).abs().max()),
+                 state_max_abs=float(want_h.abs().max()),
+                 argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                    .float().mean()),
+                 bound_fraction=HYBRID_BOUNDS[dn])
+        r["bound"] = HYBRID_BOUNDS[dn] * r["max_abs_logit"]
+        r["state_bound"] = HYBRID_BOUNDS[dn] * r["state_max_abs"]
+        log(f"check {cfg.name} {dn}, standard attention scales: teacher-"
+            f"forced (slab prefill 512 + 8 decode steps), kernels vs plain "
+            f"versions: logits max_abs_diff={r['max_abs_diff']:.4e} of "
+            f"max_abs_logit={r['max_abs_logit']:.4e} (bound "
+            f"{r['bound']:.4e}); prefill ssm state max_abs_diff="
+            f"{r['state_max_abs_diff']:.4e} of {r['state_max_abs']:.4e} "
+            f"(bound {r['state_bound']:.4e}); argmax_agree="
+            f"{r['argmax_agree']:.3f}")
+        out[dn] = r
+        if not (math.isfinite(r["max_abs_diff"])
+                and math.isfinite(r["state_max_abs_diff"])
+                and r["max_abs_diff"] <= r["bound"]
+                and r["state_max_abs_diff"] <= r["state_bound"]):
+            raise SystemExit(f"check: {cfg.name} {dn} kernel path beyond "
+                             f"the bound")
+    return out
+
+
+def zamba_phase(cfg):
+    """12. zamba2-7b at full width in f32 (81 mamba layers in 13 groups
+    of 6 plus a tail of 3; one shared block of 32/32 heads of hd 112):
+    the serve trace on the slab (`hybrid_serve_counts`); (a) smoke tokens,
+    card against the CPU; (b) `hybrid_check` at standard attention
+    scales."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg)
+    out = {"serve": serve_phase(cfg, params)}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"serve {cfg.name} f32: peak memory {out['peak_memory_gib']:.2f} "
+        f"GiB (weights and both engines' slabs)")
+    hybrid_serve_counts(cfg, out["serve"])
+    out["check_tokens"] = smoke_tokens_check("zamba2-7b-smoke")
+    scale_attention(params["shared"]["attn"], cfg)
+    out["check"] = hybrid_check(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def facade_check(cfg, params, batch, n_prompt_tokens, max_len, expect):
+    """Through the facade (`Model.prefill` on a batch dict, then one
+    `Model.decode_step` per remaining token), the logits through the
+    kernels against the plain versions, f32 and bf16 (a cast), each held
+    to `FACADE_BOUNDS`. `expect` gives each kernel's launches in the
+    kernel run (counts set to 0 just before it)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.api import build_model
+    model = build_model(cfg)
+    toks = batch["tokens"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        p = model.cast(params, dtype, toks.device)
+        b = {k: (v.to(dtype) if v.is_floating_point() else v)
+             for k, v in batch.items()}
+        b["tokens"] = toks[:, :n_prompt_tokens]
+        runs = {}
+        for plain in (False, True):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            lg, cache = model.prefill(p, b, max_len=max_len, plain=plain)
+            rows = [lg.float()]
+            for t in range(n_prompt_tokens, toks.shape[1]):
+                lg, cache = model.decode_step(p, cache, toks[:, t],
+                                              plain=plain)
+                rows.append(lg.float())
+            torch.cuda.synchronize()
+            runs[plain] = (torch.cat(rows), launch_counts())
+            del cache
+        del p
+        got, want = runs[False][0], runs[True][0]
+        counts = runs[False][1]
+        r = dict(max_abs_diff=float((got - want).abs().max()),
+                 max_abs_logit=float(want.abs().max()),
+                 argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                    .float().mean()),
+                 launches=counts, plain_launches=runs[True][1])
+        r["bound"] = FACADE_BOUNDS[dn] * r["max_abs_logit"]
+        launched = {k: counts[k] for k in expect}
+        log(f"check {cfg.name} {dn}, standard attention scales: facade "
+            f"prefill + {toks.shape[1] - n_prompt_tokens} decode steps, "
+            f"kernels vs plain versions: max_abs_diff="
+            f"{r['max_abs_diff']:.4e} of max_abs_logit="
+            f"{r['max_abs_logit']:.4e} (bound {r['bound']:.4e}); "
+            f"argmax_agree={r['argmax_agree']:.3f}; launches {launched} "
+            f"(expected {expect}; plain run "
+            f"{sum(runs[True][1].values())})")
+        out[dn] = r
+        if not (math.isfinite(r["max_abs_diff"])
+                and r["max_abs_diff"] <= r["bound"]) \
+                or launched != expect or sum(runs[True][1].values()):
+            raise SystemExit(f"check: {cfg.name} {dn} kernel path beyond "
+                             f"the bound or off its kernels")
+    return out
+
+
+def facade_phase(ecfg, vcfg):
+    """13. The encoder-decoder and the VLM at the facade. (a)
+    seamless-m4t-large-v2 at full width and depth (24 + 24 layers, d
+    1024, 16/16 heads of hd 64): encode 1024 frames, a 64-token decoder
+    prefill, 8 decode steps (the decoder's self-attention through the
+    fused insert + decode, its cross-attention through `paged_decode`
+    over the cross-KV slab). (b) internvl2-76b at full width (d 8192,
+    64/8 heads of hd 128) with the depth cut to 4 of 80 layers: 1024
+    frontend embeddings plus 200 text tokens, prefill on the slab, 8
+    decode steps. Both at standard attention scales, `facade_check`."""
+    import torch
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = init_params(ecfg)
+    for blk in ("enc", "dec"):
+        scale_attention(params[blk]["attn"], ecfg)
+    scale_attention(params["dec"]["xattn"], ecfg)
+    L, Le = ecfg.num_layers, ecfg.encoder_layers
+    batch = {"src_embeds": 0.3 * torch.randn(1, 1024, ecfg.d_model,
+                                             generator=gen, device="cuda"),
+             "tokens": torch.randint(1, ecfg.vocab_size, (1, 64 + 8),
+                                     generator=gen, device="cuda")}
+    out["seamless"] = facade_check(
+        ecfg, params, batch, 64, 128,
+        {"flash_prefill": Le + 2 * L, "paged_decode": 8 * 2 * L,
+         "paged_insert_decode": 8 * L})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = vcfg.replace(num_layers=4)
+    params = init_params(cut)
+    standard_attention_scales(params, cut)
+    batch = {"frontend_embeds": cut.d_model ** -0.5 * torch.randn(
+                 1, 1024, cut.d_model, generator=gen, device="cuda"),
+             "tokens": torch.randint(1, cut.vocab_size, (1, 200 + 8),
+                                     generator=gen, device="cuda")}
+    out["internvl2"] = facade_check(
+        cut, params, batch, 200, 1280,
+        {"flash_prefill": 4, "paged_decode": 8 * 4,
+         "paged_insert_decode": 8 * 4})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def ptxas_summary(build_log: Path) -> str:
     """Registers per kernel instance and the instances that spill, from
@@ -1809,15 +2521,18 @@ def ptxas_summary(build_log: Path) -> str:
             f"{len(spills)} spilling" + "".join(f"\n  {s}" for s in spills))
 
 
-def init_params(cfg):
-    """Random f32 weights of `cfg` on the card, from seed 0."""
+def init_params(cfg, dtype=None):
+    """Random weights of `cfg` on the card, from seed 0, drawn in f32 and
+    stored in `dtype` (default f32; a bf16 model is drawn a layer at a
+    time, never whole in f32)."""
     import torch
     from repro_torch.models.api import build_model
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    params = build_model(cfg).init(gen, "cuda")
+    params = build_model(cfg).init(gen, "cuda", dtype=dtype)
     torch.cuda.synchronize()
-    log(f"init {cfg.name} f32 params on the card: "
+    log(f"init {cfg.name} {dtype_name(dtype)} params on the card: "
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     return params
@@ -1861,8 +2576,13 @@ def main() -> int:
     record["kernels"] = kernel_phase(cfg, dtypes)
     for dn, rows in ssd_kernel_phase(mcfg, dtypes).items():
         record["kernels"][dn].update(rows)
-    for dn, rows in wide_kernel_phase(gcfg, get_config("zamba2-7b"),
-                                      dtypes).items():
+    zcfg = get_config("zamba2-7b")
+    for dn, rows in wide_kernel_phase(gcfg, zcfg, dtypes).items():
+        record["kernels"][dn].update(rows)
+    for dn, rows in ssd_kernel_phase(
+            zcfg, dtypes, (("ssd_scan_zamba2_s1536", 1536, 256),)).items():
+        record["kernels"][dn].update(rows)
+    for dn, rows in family_kernel_phase(dtypes).items():
         record["kernels"][dn].update(rows)
 
     # -- yi-6b: the paged path ---------------------------------------------
@@ -1920,14 +2640,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["router"] = router_phase(cfg, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the remaining families: MoE, hybrid, encoder-decoder, VLM ----------
+    record["moonshot"] = moonshot_phase(get_config("moonshot-v1-16b-a3b"),
+                                        record["serve"])
+    record["zamba2"] = zamba_phase(zcfg)
+    record["facade"] = facade_phase(get_config("seamless-m4t-large-v2"),
+                                    get_config("internvl2-76b"))
 
     serves = {"yi-6b": record["serve"], "mamba2-2.7b": record["serve_mamba"],
               "gemma3-1b": record["serve_gemma"],
-              "launch.serve": record["launch"], "router": record["router"]}
+              "launch.serve": record["launch"], "router": record["router"],
+              "moonshot-v1-16b-a3b": record["moonshot"]["serve"],
+              "zamba2-7b": record["zamba2"]["serve"],
+              "seamless-m4t-large-v2":
+                  record["facade"]["seamless"]["float32"]}
     rows = []
-    for name, kern, path, row in SUMMARY:
+    for name, kern, path, row, *dt in SUMMARY:
         src, replaces = SOURCES[kern]
-        r = record["kernels"]["float32"][row]
+        r = record["kernels"][dt[0] if dt else "float32"][row]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": serves[path]["launches"][kern],

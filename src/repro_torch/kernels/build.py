@@ -156,6 +156,25 @@ def head_dim_instance(name: str, hd: int) -> int:
     return next(i for i in HD_INSTANCES if hd <= i)
 
 
+def padded_head_dim(name: str, hd: int) -> int:
+    """The head dim the attention kernels run `hd` at: `hd` itself where it
+    is a multiple of 16 (`head_dim_instance` takes it as is), else the next
+    multiple of 16, to which the wrappers zero-pad q, k and v (zero columns
+    add nothing to q.k, and the output's padding columns are sliced off).
+    Head dims above 256 raise ValueError: no instance is compiled for them
+    and no config of either package has one."""
+    if not 1 <= hd <= HD_INSTANCES[-1]:
+        raise ValueError(f"{name}: head dim {hd} is outside 1..256 (no "
+                         f"compiled instance)")
+    return -(-hd // 16) * 16
+
+
+def pad_head_dim(t: torch.Tensor, hdp: int) -> torch.Tensor:
+    """`t` with its last dim zero-padded to `hdp` (a copy), or `t`."""
+    n = t.shape[-1]
+    return t if n == hdp else torch.nn.functional.pad(t, (0, hdp - n))
+
+
 def require_cuda(name: str, *tensors: torch.Tensor):
     """The checks every launch wrapper makes before handing pointers over."""
     dev = tensors[0].device

@@ -15,7 +15,8 @@ import math
 import torch
 
 from ..build import (DTYPE_CODES, bhs_strides, check, head_dim_instance,
-                     library, require_aligned, require_cuda, stream_of)
+                     library, pad_head_dim, padded_head_dim, require_aligned,
+                     require_cuda, stream_of)
 
 BQ = 64                 # query rows a consumer warpgroup (and a f32 block)
 
@@ -44,13 +45,22 @@ def _sm_count(index: int) -> int:
 
 def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
                   softcap: float = 0.0):
-    """-> (B, H, Sq, hd), laid out like `q`."""
+    """-> (B, H, Sq, hd), laid out like `q`. A head dim that is not a
+    multiple of 16 runs zero-padded to the next one (`padded_head_dim`),
+    at the scale of the true head dim."""
     require_cuda("flash_prefill", q, k, v)
     B, H, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("flash_prefill: f32/bf16 tensors of one dtype")
+    hdp = padded_head_dim("flash_prefill", hd)
+    if hdp != hd:
+        return flash_prefill(
+            pad_head_dim(q, hdp), pad_head_dim(k, hdp), pad_head_dim(v, hdp),
+            causal=causal, window=window,
+            scale=scale if scale is not None else 1.0 / math.sqrt(hd),
+            softcap=softcap)[..., :hd]
     head_dim_instance("flash_prefill", hd)
     if H % Hkv:
         raise ValueError(f"flash_prefill: H={H} is not a multiple of "

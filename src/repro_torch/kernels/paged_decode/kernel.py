@@ -13,11 +13,12 @@ import math
 import torch
 
 from ..build import (DTYPE_CODES, check, head_dim_instance, library,
-                     require_aligned, require_cuda, stream_of)
+                     pad_head_dim, padded_head_dim, require_aligned,
+                     require_cuda, stream_of)
 
 
 DEC_ROWS = 32          # kv positions a tile of the split kernel
-DEC_GMAX = 16          # largest query-head group H / Hkv it takes
+DEC_GMAX = 16          # largest query-head group H / Hkv a launch takes
 
 
 def decode_split(B: int, Hkv: int, pps: int, page: int,
@@ -53,18 +54,68 @@ def _check_decode(name, q, k_pages, v_pages, block_table, lens):
             or v_pages.dtype != q.dtype:
         raise TypeError(f"{name}: f32/bf16 of one dtype, got "
                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    head_dim_instance(name, hd)
-    if H % Hkv or H // Hkv > DEC_GMAX:
-        raise ValueError(f"{name}: unsupported H={H}, Hkv={Hkv} (groups of "
-                         f"at most {DEC_GMAX})")
+    padded_head_dim(name, hd)
+    if H % Hkv:
+        raise ValueError(f"{name}: H={H} is not a multiple of Hkv={Hkv}")
     if block_table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError(f"{name}: block_table and lens must be int32")
 
 
+def _by_groups(q, Hkv, run):
+    """`run(q_part, first)` over slices of at most `DEC_GMAX` query heads
+    of each kv head's group (the split kernel's largest group), the
+    outputs put back in head order; `first` is true for the first slice
+    only. A group of at most `DEC_GMAX` is one call on `q` itself."""
+    B, H, hd = q.shape
+    G = H // Hkv
+    if G <= DEC_GMAX:
+        return run(q, True)
+    qg = q.view(B, Hkv, G, hd)
+    outs = []
+    for g0 in range(0, G, DEC_GMAX):
+        g = min(DEC_GMAX, G - g0)
+        part = qg[:, :, g0:g0 + g].reshape(B, Hkv * g, hd)
+        outs.append(run(part, g0 == 0).view(B, Hkv, g, hd))
+    return torch.cat(outs, dim=2).view(B, H, hd)
+
+
 def _launch_decode(q, k_pages, v_pages, block_table, lens, scale, softcap,
                    k_new=None, v_new=None):
-    """Allocate the output and the split workspace and launch the C entry
-    `paged_decode`, or `paged_insert_decode` when new rows are given."""
+    """Launch the C entry `paged_decode`, or `paged_insert_decode` when new
+    rows are given, over query-head slices of at most `DEC_GMAX` a group
+    (the rows go in with the first slice; the rest only read them), or
+    zero-padded to the next multiple of 16 where the head dim is not one:
+    the pools are then padded copies, and an insert is copied back into
+    the pools. -> (B, H, hd)."""
+    B, H, hd = q.shape
+    Hkv = k_pages.shape[2]
+    hdp = padded_head_dim("paged_decode", hd)
+    if hdp != hd:
+        scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+        kp, vp = pad_head_dim(k_pages, hdp), pad_head_dim(v_pages, hdp)
+        new = [None if t is None else pad_head_dim(t, hdp)
+               for t in (k_new, v_new)]
+        out = _launch_decode(pad_head_dim(q, hdp), kp, vp, block_table,
+                             lens, scale, softcap, *new)
+        if k_new is not None:
+            k_pages.copy_(kp[..., :hd])
+            v_pages.copy_(vp[..., :hd])
+        return out[..., :hd].contiguous()
+
+    def run(part, first):
+        new = (k_new, v_new) if first else (None, None)
+        return _launch_split(part, k_pages, v_pages, block_table, lens,
+                             scale, softcap, *new)
+    return _by_groups(q, Hkv, run)
+
+
+def _launch_split(q, k_pages, v_pages, block_table, lens, scale, softcap,
+                  k_new=None, v_new=None):
+    """Allocate the output and the split workspace and launch one C entry,
+    for a group of at most `DEC_GMAX` query heads and a compiled head
+    dim."""
+    head_dim_instance("paged_decode", q.shape[2])
+    require_aligned("paged_decode", k_pages, v_pages)
     B, H, hd = q.shape
     _, page, Hkv, _ = k_pages.shape
     pps = block_table.shape[1]
@@ -93,12 +144,12 @@ def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
                  softcap: float = 0.0):
     """q: (B, H, hd); k/v_pages: (num_pages, page, Hkv, hd); block_table:
     (B, pps) i32; lens: (B,) i32 -> (B, H, hd). Two launches (split,
-    combine) count as one call of the op."""
+    combine) count as one call of the op, as do the launches of a group
+    above `DEC_GMAX` query heads, which runs in slices (`_by_groups`)."""
     _check_decode("paged_decode", q, k_pages, v_pages, block_table, lens)
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     block_table, lens = block_table.contiguous(), lens.contiguous()
-    require_aligned("paged_decode", k_pages, v_pages)
     out = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
                          softcap)
     paged_decode.launches += 1
@@ -135,7 +186,6 @@ def paged_insert_decode(q, k_new, v_new, k_pages, v_pages, block_table,
                         f"{v_new.dtype}")
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     block_table, lens = block_table.contiguous(), lens.contiguous()
-    require_aligned(name, k_pages, v_pages)
     out = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
                          softcap, k_new, v_new)
     paged_decode.launches += 1

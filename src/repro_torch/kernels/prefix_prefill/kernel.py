@@ -15,13 +15,16 @@ import math
 import torch
 
 from ..build import (DTYPE_CODES, bhs_strides, check, head_dim_instance,
-                     library, require_aligned, require_cuda, stream_of)
+                     library, pad_head_dim, padded_head_dim, require_aligned,
+                     require_cuda, stream_of)
 
 
 def prefix_prefill(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
                    prefix_lens, suffix_lens=None, *, scale=None,
                    softcap: float = 0.0):
-    """-> (B, H, Sq, hd), laid out like `q`."""
+    """-> (B, H, Sq, hd), laid out like `q`. A head dim that is not a
+    multiple of 16 runs zero-padded to the next one (`padded_head_dim`;
+    the pools too, a copy), at the scale of the true head dim."""
     require_cuda("prefix_prefill", q, k_suf, v_suf, k_pages, v_pages,
                  prefix_table, prefix_lens)
     B, H, Sq, hd = q.shape
@@ -31,6 +34,14 @@ def prefix_prefill(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
     if dt not in DTYPE_CODES or any(t.dtype != dt for t in
                                     (k_suf, v_suf, k_pages, v_pages)):
         raise TypeError("prefix_prefill: f32/bf16 tensors of one dtype")
+    hdp = padded_head_dim("prefix_prefill", hd)
+    if hdp != hd:
+        pad = [pad_head_dim(t, hdp) for t in (q, k_suf, v_suf, k_pages,
+                                               v_pages)]
+        return prefix_prefill(
+            *pad, prefix_table, prefix_lens, suffix_lens,
+            scale=scale if scale is not None else 1.0 / math.sqrt(hd),
+            softcap=softcap)[..., :hd]
     head_dim_instance("prefix_prefill", hd)
     if H % Hkv:
         raise ValueError(f"prefix_prefill: H={H} is not a multiple of "

@@ -1,9 +1,14 @@
-"""Model facade (port of `repro/models/api.py`).
+"""Model facade (port of `repro/models/api.py`): one interface per family
+for engines and launchers.
 
-The port covers the dense decoder, on the paged KV path and on the dense
-slot slab (sliding-window and local-global archs on the slab only), and
-the SSM family (`mamba_lm`) on the slab. Other families raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+batch dicts (the JAX facade's):
+  LM families:  {"tokens": (B, S) int [, "frontend_embeds": (B, P, d)]}
+  encdec:       {"src_embeds": (B, T, d), "tokens": (B, S) int}
+decode tokens: (B,) int.
+
+`Model.forward` takes either such a batch (as in JAX: returns (logits,
+aux)) or a token tensor plus the module's keyword arguments (returns the
+module's (logits, cache, aux); what the engines call).
 """
 from __future__ import annotations
 
@@ -12,24 +17,14 @@ from typing import Any
 
 import torch
 
-from . import mamba_lm, transformer
-
-_PORTED = {"dense": transformer, "ssm": mamba_lm}
-# family -> the ROADMAP item that ports it
-_LATER = {
-    "moe": "A9 (MoE routed experts)",
-    "vlm": "A9 (VLM frontends)",
-    "hybrid": "A11 (models/hybrid.py)",
-    "encdec": "A11 (models/encdec.py)",
-}
+from . import encdec, hybrid, mamba_lm, transformer
 
 
 def _mod(cfg):
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP {_LATER.get(cfg.family, 'A')})")
-    return _PORTED[cfg.family]
+    return {
+        "dense": transformer, "moe": transformer, "vlm": transformer,
+        "ssm": mamba_lm, "hybrid": hybrid, "encdec": encdec,
+    }[cfg.family]
 
 
 @dataclasses.dataclass
@@ -37,10 +32,12 @@ class Model:
     cfg: Any
 
     # ---- params ----------------------------------------------------
-    def init(self, gen: torch.Generator, device=None):
-        """Random f32 params on `device` (default: the generator's)."""
+    def init(self, gen: torch.Generator, device=None, dtype=torch.float32):
+        """Random params on `device` (default: the generator's), drawn in
+        f32 and stored in `dtype`."""
+        kw = {} if dtype == torch.float32 else {"dtype": dtype}
         return _mod(self.cfg).init(gen, self.cfg,
-                                   device=device or gen.device)
+                                   device=device or gen.device, **kw)
 
     @staticmethod
     def cast(params, dtype, device):
@@ -55,8 +52,29 @@ class Model:
         return leaf(params)
 
     # ---- compute ----------------------------------------------------
-    def forward(self, params, tokens, **kw):
-        return _mod(self.cfg).forward(params, tokens, self.cfg, **kw)
+    def forward(self, params, batch, **kw):
+        """With a batch dict: full-sequence logits and aux (JAX
+        `Model.forward`). With a token tensor: the module's forward and
+        its (logits, cache, aux)."""
+        m = _mod(self.cfg)
+        if not isinstance(batch, dict):
+            return m.forward(params, batch, self.cfg, **kw)
+        if self.cfg.family == "encdec":
+            logits, _, aux = m.forward(params, batch, self.cfg, **kw)
+        else:
+            logits, _, aux = m.forward(
+                params, batch["tokens"], self.cfg,
+                frontend_embeds=batch.get("frontend_embeds"), **kw)
+        return logits, aux
+
+    def prefill(self, params, batch, *, max_len: int, **kw):
+        """Last-position logits (B, V) and the cache sized for `max_len`
+        (JAX `Model.prefill`)."""
+        m = _mod(self.cfg)
+        if self.cfg.family == "encdec":
+            return m.prefill(params, batch, self.cfg, max_len=max_len, **kw)
+        return m.prefill(params, batch["tokens"], self.cfg, max_len=max_len,
+                         frontend_embeds=batch.get("frontend_embeds"), **kw)
 
     def decode_step(self, params, cache, tokens, *, plain=False):
         """Dense-slab decode step (KV slabs or SSM state, in place)."""
@@ -72,8 +90,10 @@ class Model:
                                                 self.cfg, plain=plain)
 
     # ---- specs -------------------------------------------------------
-    def cache_specs(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return _mod(self.cfg).cache_specs(self.cfg, batch, max_len, dtype)
+    def cache_specs(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                    **kw):
+        return _mod(self.cfg).cache_specs(self.cfg, batch, max_len, dtype,
+                                          **kw)
 
     def paged_cache_specs(self, batch: int, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, max_len=None):
@@ -94,10 +114,11 @@ def supports_paged(cfg) -> bool:
 
 
 def supports_slab(cfg) -> bool:
-    """Whether the family's dense-slab decode (`decode_step` over
-    `cache_specs`) is ported: every ported family (the transformer and the
-    SSM), as the JAX engine runs any arch on the slab that is not paged."""
-    return hasattr(_mod(cfg), "decode_step")
+    """Whether the serving engine runs the family on the dense slab
+    (`decode_step` over `cache_specs`): every family but the
+    encoder-decoder, whose prefill takes a batch with `src_embeds` (the
+    JAX engine does not serve it either; it runs at the facade)."""
+    return cfg.family != "encdec"
 
 
 def build_model(cfg) -> Model:

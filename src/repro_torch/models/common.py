@@ -31,7 +31,12 @@ def param(gen: torch.Generator, shape, *, device, dtype=torch.float32,
           stack: int = 0) -> torch.Tensor:
     """One parameter (or `stack` stacked copies, leading layer axis) with
     the scales of `repro/models/common.py::param`: normal * 1/sqrt(fan_in),
-    fan_in = shape[-2] (shape[-1] for vectors), unless `scale` is given."""
+    fan_in = shape[-2] (shape[-1] for vectors), unless `scale` is given.
+
+    Drawn in f32. A stacked leaf of another `dtype` is drawn a layer at a
+    time into a tensor of that dtype, so a bf16 model's peak stays near
+    its bf16 size (moonshot-v1-16b-a3b's expert `wi` alone is 69 GB in
+    f32)."""
     full = ((stack,) if stack else ()) + tuple(shape)
     if init == "zeros":
         return torch.zeros(full, device=device, dtype=dtype)
@@ -40,6 +45,11 @@ def param(gen: torch.Generator, shape, *, device, dtype=torch.float32,
     if scale is None:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = 1.0 / math.sqrt(fan_in)
+    if stack and dtype != torch.float32:
+        out = torch.empty(full, device=device, dtype=dtype)
+        for l in range(stack):
+            out[l] = param(gen, shape, device=device, scale=scale)
+        return out
     v = torch.randn(full, generator=gen, device=device, dtype=torch.float32)
     v.mul_(scale)       # in place: no second full-size temporary
     return v if dtype == torch.float32 else v.to(dtype)
@@ -73,13 +83,13 @@ def apply_norm(x, p, cfg):
     return rmsnorm(x, p["w"], cfg.norm_eps)
 
 
-def norm_params(gen, d, cfg, *, device, stack: int = 0):
+def norm_params(gen, d, cfg, *, device, stack: int = 0,
+                dtype=torch.float32):
+    kw = dict(device=device, stack=stack, dtype=dtype)
     if cfg.norm_type == "layernorm":
-        return {"w": param(gen, (d,), device=device, init="ones", stack=stack),
-                "b": param(gen, (d,), device=device, init="zeros",
-                           stack=stack)}
-    return {"w": param(gen, (d,), device=device, init="zeros",
-                       stack=stack)}  # (1+w) form
+        return {"w": param(gen, (d,), init="ones", **kw),
+                "b": param(gen, (d,), init="zeros", **kw)}
+    return {"w": param(gen, (d,), init="zeros", **kw)}  # (1+w) form
 
 
 def _gelu(x):

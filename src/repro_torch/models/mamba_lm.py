@@ -32,13 +32,14 @@ def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
 
 
 def forward(params, tokens, cfg, *, return_cache=False, max_len=None,
-            attn_blocks=None, plain: bool = False):
+            attn_blocks=None, frontend_embeds=None, plain: bool = False):
     """tokens: (B, S) int. Returns (logits, cache, aux). With
     `return_cache`, only the last position's logits (B, 1, V) and the
-    cache `{"ssm", "conv", "pos"}` of `cache_specs`' layout. `max_len`
-    and `attn_blocks` are taken, and unused, as in JAX (a constant-size
-    state, no attention): the engine passes them to every family."""
-    del max_len, attn_blocks
+    cache `{"ssm", "conv", "pos"}` of `cache_specs`' layout. `max_len`,
+    `attn_blocks` and `frontend_embeds` are taken, and unused, as in JAX
+    (a constant-size state, no attention): the engine passes them to
+    every family."""
+    del max_len, attn_blocks, frontend_embeds
     x = embed_lookup(params["embed"], tokens.long())
     ssm, conv = [], {"x": [], "B": [], "C": []}
     for l in range(cfg.num_layers):
@@ -63,9 +64,13 @@ def forward(params, tokens, cfg, *, return_cache=False, max_len=None,
     return logits, cache, 0.0
 
 
-def prefill(params, tokens, cfg, *, plain: bool = False):
+def prefill(params, tokens, cfg, *, attn_blocks=None, max_len=None,
+            frontend_embeds=None, plain: bool = False):
+    """Returns (last-token logits (B, V), cache); `attn_blocks`, `max_len`
+    and `frontend_embeds` are taken, and unused, as in JAX."""
     logits, cache, _ = forward(params, tokens, cfg, return_cache=True,
-                               plain=plain)
+                               attn_blocks=attn_blocks, max_len=max_len,
+                               frontend_embeds=frontend_embeds, plain=plain)
     return logits[:, -1], cache
 
 

@@ -12,8 +12,13 @@ slab_pages`). Each op takes the plain version for CPU tensors;
 `plain=True` forces the plain version on any device (the reference of
 the whole-model check in `chip_smoke.py`).
 
-Not ported yet: the dense `prefix_kv` branch (ROADMAP A8), MoE routed
-experts and VLM frontends (A9).
+MoE layers run `models/moe.py::moe_apply` (the routed experts' batched
+products in `torch.bmm`, as JAX computes them outside any kernel); a VLM
+prepends its frontend embeddings to the token embeddings. The dense
+`prefix_kv` branch (the serving engine's `fused_prefix=False` fallback)
+runs `prefix_prefill` over the gathered prefix viewed as pages with an
+identity table, the same function as JAX's `flash_reference` with
+`prefix_len`.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from ..kernels.prefix_prefill.ops import prefix_prefill_op
 from .attention import slab_attend, slab_page, slab_pages, slab_table
 from .common import (TensorSpec, apply_norm, apply_rope, embed_lookup,
                      layer_of, norm_params, param, rmsnorm)
-from .moe import dense_ffn_apply, dense_ffn_params
+from .moe import dense_ffn_apply, dense_ffn_params, moe_apply, moe_params
 
 LOCAL_ROPE_THETA = 10000.0  # gemma3 local layers
 
@@ -79,9 +84,9 @@ def _rope_theta(kind: str, cfg) -> float:
 # params
 # ---------------------------------------------------------------------------
 
-def attn_params(gen, cfg, *, device, stack):
+def attn_params(gen, cfg, *, device, stack, dtype=torch.float32):
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    kw = dict(device=device, stack=stack)
+    kw = dict(device=device, stack=stack, dtype=dtype)
     p = {
         "wq": param(gen, (d, H, hd), **kw),
         "wk": param(gen, (d, Hkv, hd), **kw),
@@ -94,34 +99,38 @@ def attn_params(gen, cfg, *, device, stack):
     return p
 
 
-def layer_params(gen, cfg, kind: str, *, device, stack):
-    if kind == "moe":
-        raise NotImplementedError("MoE routed experts are not ported yet "
-                                  "(ROADMAP A9)")
-    ff = cfg.moe.dense_d_ff or cfg.d_ff if cfg.family == "moe" else cfg.d_ff
-    return {
-        "ln1": norm_params(gen, cfg.d_model, cfg, device=device, stack=stack),
-        "attn": attn_params(gen, cfg, device=device, stack=stack),
-        "ln2": norm_params(gen, cfg.d_model, cfg, device=device, stack=stack),
-        "ffn": dense_ffn_params(gen, cfg.d_model, ff, device=device,
-                                stack=stack),
+def layer_params(gen, cfg, kind: str, *, device, stack,
+                 dtype=torch.float32):
+    kw = dict(device=device, stack=stack, dtype=dtype)
+    p = {
+        "ln1": norm_params(gen, cfg.d_model, cfg, **kw),
+        "attn": attn_params(gen, cfg, **kw),
+        "ln2": norm_params(gen, cfg.d_model, cfg, **kw),
     }
+    if kind == "moe":
+        p["moe"] = moe_params(gen, cfg, **kw)
+    else:
+        ff = cfg.moe.dense_d_ff or cfg.d_ff if cfg.family == "moe" \
+            else cfg.d_ff
+        p["ffn"] = dense_ffn_params(gen, cfg.d_model, ff, **kw)
+    return p
 
 
-def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
-    """Random f32 params at the JAX init scales, drawn on `device` from
-    `gen` (a generator on that device)."""
+def init(gen: torch.Generator, cfg, *, device,
+         dtype=torch.float32) -> Dict[str, Any]:
+    """Random params at the JAX init scales, drawn in f32 on `device` from
+    `gen` (a generator on that device) and stored in `dtype` (a stacked
+    leaf a layer at a time, `common.param`)."""
     d = cfg.d_model
+    kw = dict(device=device, dtype=dtype)
     p: Dict[str, Any] = {
-        "embed": param(gen, (cfg.vocab_size, d), device=device,
-                       scale=d ** -0.5),
-        "final_norm": norm_params(gen, d, cfg, device=device),
+        "embed": param(gen, (cfg.vocab_size, d), scale=d ** -0.5, **kw),
+        "final_norm": norm_params(gen, d, cfg, **kw),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = param(gen, (d, cfg.vocab_size), device=device)
+        p["lm_head"] = param(gen, (d, cfg.vocab_size), **kw)
     for i, seg in enumerate(layer_plan(cfg)):
-        p[f"seg{i}"] = layer_params(gen, cfg, seg.kind, device=device,
-                                    stack=seg.n)
+        p[f"seg{i}"] = layer_params(gen, cfg, seg.kind, stack=seg.n, **kw)
     return p
 
 
@@ -149,18 +158,38 @@ def _out_proj(o, wo):
     return o.reshape(*o.shape[:-2], H * hd) @ wo.reshape(H * hd, d)
 
 
+def dense_prefix_pages(pk, pv, prefix_len):
+    """A gathered dense prefix pk/pv (B, P, Hkv, hd) as `paged_prefix`:
+    its page view with the identity table (`slab_pages`, no copy) and
+    (B,) i32 live lengths, `prefix_len` (scalar or (B,); None: all P)."""
+    B, P = pk.shape[:2]
+    kp, vp, table = slab_pages(pk.contiguous(), pv.contiguous())
+    plens = torch.broadcast_to(torch.as_tensor(
+        P if prefix_len is None else prefix_len, dtype=torch.int32,
+        device=pk.device), (B,)).contiguous()
+    return kp, vp, table, plens
+
+
 def attn_full(p, x, cfg, kind, positions, attn_blocks=(512, 512),
-              paged_prefix=None, plain: bool = False):
+              prefix=None, prefix_len=None, paged_prefix=None,
+              plain: bool = False):
     """Full-sequence attention (prefill). Returns (out, (k, v)).
 
-    Without `paged_prefix` the queries attend causally over themselves
-    through the `flash_prefill` kernel (where the JAX model runs the jnp
+    Without a prefix the queries attend causally over themselves through
+    the `flash_prefill` kernel (where the JAX model runs the jnp
     `flash_reference`). `paged_prefix` = (k_pages, v_pages, block_table,
     prefix_lens) reads a prefix straight from the page pool through the
-    `prefix_prefill` kernel. The returned cache holds only this chunk's
+    `prefix_prefill` kernel. `prefix` = (k, v), a dense (B, P, Hkv, hd)
+    prefix of already-roped KV of which the first `prefix_len` positions
+    are live, runs the same kernel over its page view
+    (`dense_prefix_pages`). The returned cache holds only this chunk's
     KV."""
     window = cfg.sliding_window if _is_windowed(kind, cfg) else 0
     q, k, v = _qkv(p, x, cfg, positions, _rope_theta(kind, cfg))
+    if prefix is not None:
+        assert paged_prefix is None
+        paged_prefix = dense_prefix_pages(prefix[0].to(k.dtype),
+                                          prefix[1].to(v.dtype), prefix_len)
     if paged_prefix is not None:
         assert window == 0, "prefix reuse needs full attention"
         kp_l, vp_l, table, plens = paged_prefix
@@ -225,29 +254,51 @@ def attn_decode(p, x, cfg, kind, k_cache, v_cache, pos, slots,
 # forward passes
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, tokens, cfg):
+def _ffn(pl, x, cfg, kind):
+    """The layer's FFN: routed experts on a MoE layer, else dense.
+    Returns (out, aux), aux 0.0 for a dense layer."""
+    if kind == "moe":
+        return moe_apply(pl["moe"], x, cfg)
+    return dense_ffn_apply(pl["ffn"], x, cfg), 0.0
+
+
+def embed_tokens(params, tokens, cfg, frontend_embeds=None):
+    """Token embeddings; a VLM's frontend embeddings (B, P, d) go first."""
     x = embed_lookup(params["embed"], tokens.long())
     if cfg.embedding_scale:
         x = x * (cfg.d_model ** 0.5)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x
 
 
-def _layer_body(x, pl, cfg, kind, positions, attn_blocks, paged_prefix=None,
-                plain=False):
+def _layer_body(x, pl, cfg, kind, positions, attn_blocks, prefix=None,
+                prefix_len=None, paged_prefix=None, plain=False):
     h = apply_norm(x, pl["ln1"], cfg)
     a, kv = attn_full(pl["attn"], h, cfg, kind, positions, attn_blocks,
+                      prefix=prefix, prefix_len=prefix_len,
                       paged_prefix=paged_prefix, plain=plain)
     x = x + a
     h = apply_norm(x, pl["ln2"], cfg)
-    return x + dense_ffn_apply(pl["ffn"], h, cfg), kv
+    f, aux = _ffn(pl, h, cfg, kind)
+    return x + f, kv, aux
 
 
-def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
-            return_cache=False, max_len=None, prefix_kv=None,
-            prefix_pages=None, prefix_table=None, prefix_len=None,
-            pos_offset=0, last_pos=None, plain: bool = False):
-    """Full-sequence forward. tokens: (B, S) int. Returns (logits, cache,
-    aux).
+def forward(params, tokens, cfg, *, frontend_embeds=None,
+            attn_blocks=(512, 512), return_cache=False, max_len=None,
+            prefix_kv=None, prefix_pages=None, prefix_table=None,
+            prefix_len=None, pos_offset=0, last_pos=None,
+            plain: bool = False):
+    """Full-sequence forward. tokens: (B, S) int; `frontend_embeds` (B,
+    P, d) go before them (VLM). Returns (logits, cache, aux), aux the sum
+    of the MoE layers' load-balance losses.
+
+    Prefix reuse: `prefix_kv` maps segment names to {"k", "v"} of shape
+    (layers, B, P, Hkv, hd) holding the cached, already-roped KV of the
+    first P prompt positions; `tokens` then covers only the suffix,
+    `pos_offset` (= the live prefix) shifts its rope positions and
+    `prefix_len` (scalar or (B,)) marks how many of the P positions are
+    live when the gather was padded to a bucket.
 
     Fused paged path: `prefix_pages` maps segment names to {"k", "v"}
     page pools of shape (layers, num_pages, page_size, Hkv, hd) and
@@ -257,10 +308,7 @@ def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
 
     `last_pos` picks which position's logits to return with
     `return_cache` (default: the last one)."""
-    if prefix_kv is not None:
-        raise NotImplementedError("the dense prefix_kv branch is not ported "
-                                  "yet (ROADMAP A8); use prefix_pages")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, frontend_embeds)
     B, S, _ = x.shape
     dev = x.device
     positions = (int(pos_offset)
@@ -271,19 +319,25 @@ def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
         plens = torch.broadcast_to(
             torch.as_tensor(prefix_len, dtype=torch.int32, device=dev),
             (B,)).contiguous()
+    aux_total = 0.0
     cache: Dict[str, Any] = {}
     for i, seg in enumerate(layer_plan(cfg)):
         sp = params[f"seg{i}"]
         ppg = prefix_pages.get(f"seg{i}") if prefix_pages is not None \
             else None
+        pkv = prefix_kv.get(f"seg{i}") if prefix_kv is not None else None
         ks, vs = [], []
         for l in range(seg.n):
-            paged = None
+            paged = prefix = None
             if ppg is not None:
                 paged = (ppg["k"][l], ppg["v"][l], prefix_table, plens)
-            x, (k, v) = _layer_body(x, layer_of(sp, l), cfg, seg.kind,
-                                    positions, attn_blocks,
-                                    paged_prefix=paged, plain=plain)
+            elif pkv is not None:
+                prefix = (pkv["k"][l], pkv["v"][l])
+            x, (k, v), aux = _layer_body(
+                x, layer_of(sp, l), cfg, seg.kind, positions, attn_blocks,
+                prefix=prefix, prefix_len=prefix_len, paged_prefix=paged,
+                plain=plain)
+            aux_total = aux_total + aux
             if return_cache:
                 ks.append(k)
                 vs.append(v)
@@ -316,7 +370,17 @@ def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
                                   dtype=torch.int32, device=dev)
     else:
         logits = unembed(params, x, cfg)
-    return logits, cache, 0.0
+    return logits, cache, aux_total
+
+
+def prefill(params, tokens, cfg, *, frontend_embeds=None,
+            attn_blocks=(512, 512), max_len=None, plain: bool = False):
+    """Returns (last-token logits (B, V), cache sized for max_len)."""
+    logits, cache, _ = forward(params, tokens, cfg,
+                               frontend_embeds=frontend_embeds,
+                               attn_blocks=attn_blocks, return_cache=True,
+                               max_len=max_len, plain=plain)
+    return logits[:, -1], cache
 
 
 def unembed(params, x, cfg):
@@ -346,7 +410,7 @@ def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
             x = x + attn_decode(pl["attn"], h, cfg, seg.kind, kc[l], vc[l],
                                 pos, slots, plain=plain)
             h = apply_norm(x, pl["ln2"], cfg)
-            x = x + dense_ffn_apply(pl["ffn"], h, cfg)
+            x = x + _ffn(pl, h[:, None], cfg, seg.kind)[0][:, 0]
     x = apply_norm(x, params["final_norm"], cfg)
     logits = unembed(params, x, cfg)
     pos.add_(1)
@@ -390,7 +454,7 @@ def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
                                        plain=plain)
             x = x + _out_proj(o, pl["attn"]["wo"])
             h = apply_norm(x, pl["ln2"], cfg)
-            x = x + dense_ffn_apply(pl["ffn"], h, cfg)
+            x = x + _ffn(pl, h[:, None], cfg, seg.kind)[0][:, 0]
     x = apply_norm(x, params["final_norm"], cfg)
     logits = unembed(params, x, cfg)
     pos.add_(1)

@@ -1,5 +1,6 @@
 # Copied from src/repro/serving/cluster.py; `.engine` is the port's engine,
-# and every cluster takes a `device` that it hands to its engines.
+# every cluster takes a `device` that it hands to its engines, and
+# `ServingCluster` / `DisaggCluster` a storage `dtype` for them.
 """Role-unified live serving cluster on the port's PyTorch engines with
 virtual-clock concurrency emulation (DistServe runtime, Fig. 6, extended
 with runtime aggregation<->disaggregation).
@@ -189,7 +190,7 @@ class ServingCluster(_LiveBackend):
                  chunk_tokens=None,
                  absorb_tokens: Optional[int] = None,
                  seed: int = 0, tracker=None, tracer=None,
-                 charge=None, metrics=None, device=None):
+                 charge=None, metrics=None, device=None, dtype=None):
         self._init_live(cfg, seed, tracker=tracker, tracer=tracer,
                         metrics=metrics)
         # optional deterministic charge model: replace measured kernel
@@ -203,9 +204,12 @@ class ServingCluster(_LiveBackend):
             # prompts' reserved residencies; keep a few sequences' worth
             prefill_num_pages = 8 * -(-max_len // page_size) + 1
         self.prefix_cache = prefix_cache
-        # device=None: the card (an engine raises when there is none)
+        # device=None: the card (an engine raises when there is none);
+        # dtype=None: the engines' default (f32)
         base = dict(max_len=max_len, attn_blocks=attn_blocks, paged=paged,
                     page_size=page_size, device=device)
+        if dtype is not None:
+            base["dtype"] = dtype
         # engines are shaped by their *birth* role (legacy-identical
         # configs for the shims); a flipped instance keeps its engine, so
         # dynamic deployments should size pools for both roles
@@ -1373,7 +1377,7 @@ class DisaggCluster(ServingCluster):
                  fused_prefix: Optional[bool] = None,
                  chunk_tokens: Optional[int] = None,
                  seed: int = 0, tracker=None, tracer=None,
-                 charge=None, metrics=None, device=None):
+                 charge=None, metrics=None, device=None, dtype=None):
         super().__init__(
             cfg, params,
             ["prefill"] * n_prefill + ["decode"] * n_decode,
@@ -1385,7 +1389,7 @@ class DisaggCluster(ServingCluster):
             prefill_num_pages=prefill_num_pages,
             fused_prefix=fused_prefix, chunk_tokens=chunk_tokens,
             seed=seed, tracker=tracker, tracer=tracer,
-            charge=charge, metrics=metrics, device=device)
+            charge=charge, metrics=metrics, device=device, dtype=dtype)
 
 
 class ColocatedCluster(ServingCluster):

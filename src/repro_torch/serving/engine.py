@@ -20,7 +20,15 @@ and for sliding-window and local-global archs, with bucketed prefill
 (`last_pos` picks the first token's row) unless the arch is
 exact-length; its decode runs `paged_decode` over the slab viewed as
 pages. The SSM family prefills at exact length (its scan through the
-`ssd_scan` kernel) and migrates its constant-size state.
+`ssd_scan` kernel) and migrates its constant-size state; the hybrid
+family does both (state plus the shared block's KV slab per group).
+
+With the prefix cache, the suffix prefill reads the cached prefix
+straight from the pools (`prefix_prefill`) by default; with
+`fused_prefix=False` it gathers the prefix pages densely first, padded
+to the page bucket (the JAX engine's fallback), and attends over that
+gather's page view through the same kernel. The fallback's blob is the
+gathered prefix stitched to the fresh suffix.
 
 Step times are measured on the host clock after a device synchronise and
 accumulated on a virtual clock, so one host can emulate N concurrent
@@ -28,8 +36,7 @@ instances.
 
 The engine runs on the card (`device=None` means "cuda"; with no CUDA
 device it raises). `device="cpu"` runs every kernel's plain version, as
-the tests do. The dense-gather `fused_prefix=False` fallback is ROADMAP
-A8.
+the tests do.
 """
 from __future__ import annotations
 
@@ -168,11 +175,6 @@ class Engine:
         self.paged = supports_paged(cfg) if paged is None \
             else (paged and supports_paged(cfg))
         self.prefix_caching = bool(prefix_cache and self.paged)
-        if self.prefix_caching and fused_prefix is not None \
-                and not fused_prefix:
-            raise NotImplementedError(
-                "the dense-gather fused_prefix=False fallback is not ported "
-                "yet (ROADMAP A8)")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen, self.device)
@@ -198,9 +200,10 @@ class Engine:
             self._kv = KVCacheManager(num_pages, page_size, max_len)
         self.prefix_cache = (RadixPrefixCache(page_size, allocator=self._kv)
                              if self.prefix_caching else None)
-        # the fused paged-prefix prefill (prefix_prefill kernel) is the
-        # only prefix path of the port
-        self.fused_prefix = self.prefix_caching
+        # the fused paged-prefix prefill is the default; the dense-gather
+        # fallback stays behind the flag, as in JAX
+        self.fused_prefix = (self.prefix_caching if fused_prefix is None
+                             else bool(fused_prefix and self.prefix_caching))
         self._cache = self._empty_cache()
         self._partial: Dict[int, PartialPrefill] = {}
         self._slot_free = list(range(max_batch))
@@ -260,7 +263,8 @@ class Engine:
 
     def _gather(self, ids: torch.Tensor):
         """Gather pool pages into a dense (layers, 1, n*ps, Hkv, hd) blob
-        per segment (the migration payload of a page-backed blob)."""
+        per segment (the migration payload of a page-backed blob, and the
+        `fused_prefix=False` prefill's prefix KV)."""
         ps = self._kv.page_size
         n_pages = ids.shape[0]
         out = {}
@@ -366,27 +370,36 @@ class Engine:
         return min(max(b, n), self.max_len)
 
     def _forward_chunk(self, padded, ctx_pages: List[int], ctx_len: int,
-                       last_pos: int):
+                       last_pos: int, fused: bool = True):
         """One bounded prefill pass: `padded` right-padded tokens attend
         over `ctx_len` tokens resident in `ctx_pages` (none: a prefill
         from scratch through `flash_prefill`) plus themselves under the
-        offset causal mask (`prefix_prefill`, straight from the pools).
-        `last_pos` is the last real query position; `logits[0, 0]` is its
-        row. Returns (logits, cache)."""
+        offset causal mask (`prefix_prefill`): straight from the pools
+        when `fused`, else over a dense gather of the pages padded to the
+        page bucket, its padding masked by the live length. `last_pos` is
+        the last real query position; `logits[0, 0]` is its row. Returns
+        (logits, cache, prefix_kv), `prefix_kv` the gather (None unless
+        the fallback ran; callers stitch blobs from it)."""
         toks = torch.as_tensor(padded, device=self.device)
         kw = dict(attn_blocks=self.attn_blocks, return_cache=True,
                   max_len=None, last_pos=last_pos)
         if not ctx_len:
             logits, cache, _ = self.model.forward(self.params, toks, **kw)
-            return logits, cache
-        self.fused_dispatches += 1
+            return logits, cache, None
+        kw.update(prefix_len=ctx_len, pos_offset=ctx_len)
         npb = self._bucket_pages(len(ctx_pages))
-        table = self._padded_page_ids(ctx_pages, npb)[None]
+        ids = self._padded_page_ids(ctx_pages, npb)
+        if not fused:
+            prefix_kv = self._gather(ids)
+            logits, cache, _ = self.model.forward(
+                self.params, toks, prefix_kv=prefix_kv, **kw)
+            return logits, cache, prefix_kv
+        self.fused_dispatches += 1
         pools = {k: self._cache[k] for k in _seg_names(self._cache)}
         logits, cache, _ = self.model.forward(
-            self.params, toks, prefix_pages=pools, prefix_table=table,
-            prefix_len=ctx_len, pos_offset=ctx_len, **kw)
-        return logits, cache
+            self.params, toks, prefix_pages=pools, prefix_table=ids[None],
+            **kw)
+        return logits, cache, None
 
     def prefill_request(self, seq: Sequence) -> Tuple[int, Any, float]:
         """Run prefill; returns (first_token, kv_blob, step_time).
@@ -404,7 +417,7 @@ class Engine:
         padded[0, :S] = toks                                  # right-pad
         t0 = time.perf_counter()
         if self.paged:
-            logits, cache = self._forward_chunk(padded, [], 0, S - 1)
+            logits, cache, _ = self._forward_chunk(padded, [], 0, S - 1)
         else:
             # the cache comes at the slab's lengths (the insert is a slot
             # write); exact-length families take the last position's
@@ -439,14 +452,21 @@ class Engine:
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :Ssuf] = suffix
         t0 = time.perf_counter()
-        fused = bool(hit)
-        logits, cache = self._forward_chunk(padded, hit_pages, hit, Ssuf - 1)
+        fused = bool(hit and self.fused_prefix)
+        logits, cache, prefix_kv = self._forward_chunk(
+            padded, hit_pages, hit, Ssuf - 1, fused)
         first = self._sample_token(seq, logits[0, 0])
 
-        # the migration blob carries only the suffix KV; the prefix stays
-        # pinned in the page pool until the wire payload is materialized
-        blob_cache = {name: {p: cache[name][p] for p in ("k", "v")}
-                      for name in _seg_names(cache)}
+        # the migration blob: on the fused path only the suffix KV (the
+        # prefix stays pinned in the page pool until the wire payload is
+        # materialized); on the fallback the gathered prefix stitched to
+        # the fresh suffix (never a second gather of the hit pages)
+        suffix = {name: {p: cache[name][p] for p in ("k", "v")}
+                  for name in _seg_names(cache)}
+        blob_cache = suffix if prefix_kv is None else {
+            name: {p: torch.cat([prefix_kv[name][p][:, :, :hit], seg[p]],
+                                dim=2) for p in ("k", "v")}
+            for name, seg in suffix.items()}
 
         # write the fresh suffix pages back into the pools and publish the
         # new full prompt pages in the radix tree (on pool exhaustion the
@@ -457,7 +477,7 @@ class Engine:
             self.prefix_cache.evict(fresh_needed - self._kv.free_pages)
         if fresh_needed <= self._kv.free_pages:
             table = self._kv.alloc(seq.rid, S, shared=hit_pages)
-            self._write_pages(blob_cache, table[len(hit_pages):])
+            self._write_pages(suffix, table[len(hit_pages):])
             self.prefix_cache.insert(token_list[:(S // ps) * ps],
                                      table[:S // ps])
             self._kv.free(seq.rid)          # tree refs keep shared pages
@@ -473,6 +493,8 @@ class Engine:
             # until materialize_wire/release_blob
             return first, KVBlob(blob_cache, S, prefix_tokens=hit,
                                  prefix_pages=hit_pages, owner=self), dt
+        if hit_pages:
+            self._kv.release(hit_pages)     # unpin
         return first, (blob_cache, S), dt
 
     # ---- chunked prefill (incremental state machine) --------------------
@@ -538,8 +560,9 @@ class Engine:
         final = ctx + c == S
         padded = np.zeros((1, self._bucket(c)), np.int32)
         padded[0, :c] = toks[ctx:ctx + c]
-        logits, cache = self._forward_chunk(padded, st.table[:ctx // ps],
-                                            ctx, c - 1)
+        fused = self.fused_prefix if self.prefix_caching else True
+        logits, cache, _ = self._forward_chunk(
+            padded, st.table[:ctx // ps], ctx, c - 1, fused)
         first = self._sample_token(seq, logits[0, 0]) if final else None
         # in-place paged write of the chunk's fresh KV
         first_page = ctx // ps
@@ -666,23 +689,32 @@ class Engine:
         return slot
 
     def _insert_kv_slab(self, seq: Sequence, cache, n_tok: int) -> int:
-        """Write a batch-1 prefill cache into a free slot, in place: every
-        leaf but `pos` has its batch on axis 1, after the layer axis (the
-        JAX engine finds the same axis from the shapes). A leaf whose
+        """Write a batch-1 prefill cache into a free slot, in place. Each
+        leaf's batch axis is found from the shapes, as the JAX `merge`
+        finds it: the first axis where the slab has `max_batch`, the blob
+        1, and the axes before it agree (axis 1 of a transformer's KV
+        slab, axis 2 of a hybrid's (G, E, B, ...) state). A leaf whose
         other axes are shorter than the slab's (a KV cache shorter than
-        `max_len`) fills their leading positions, as the JAX `merge`."""
+        `max_len`) fills their leading positions."""
         slot = self._slot_free.pop(0)
         seq.slot = slot
 
-        def write(dst, src):
-            for k, d in dst.items():
-                if isinstance(d, dict):
-                    write(d, src[k])
-                elif k != "pos":
-                    s = src[k][:, 0]
-                    lead = tuple(slice(0, n) for n in s.shape[1:])
-                    d[(slice(None), slot) + lead] = s.to(d.dtype)
-        write(self._cache, cache)
+        def merge(dst, src):
+            if isinstance(dst, dict):
+                for k, d in dst.items():
+                    merge(d, src[k])
+                return
+            if dst.dim() != src.dim():
+                return
+            for ax in range(dst.dim()):
+                if dst.shape[ax] == self.max_batch and src.shape[ax] == 1 \
+                        and dst.shape[:ax] == src.shape[:ax]:
+                    s = src.squeeze(ax)
+                    idx = [slice(0, n) for n in s.shape]
+                    idx.insert(ax, slot)
+                    dst[tuple(idx)] = s.to(dst.dtype)
+                    return
+        merge(self._cache, cache)
         self._cache["pos"][slot] = n_tok
         return slot
 

@@ -233,12 +233,22 @@ def test_paged_decode_kernel_softcap_and_groups(cuda, dtype):
 
 
 def test_paged_decode_kernel_refuses_large_groups(cuda):
-    q = torch.zeros(1, 32, 64, device=cuda)
-    pool = torch.zeros(4, 16, 1, 64, device=cuda)
-    tab = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
-    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    """A group of 32 query heads, above the split kernel's 16, no longer
+    raises: it runs as two launches of 16 heads (one call of the op) and
+    equals the plain version; H not a multiple of Hkv still raises."""
+    rng = np.random.default_rng(9)
+    q = _t(rng, cuda, torch.float32, 1, 32, 64)
+    kp = _t(rng, cuda, torch.float32, 4, 16, 1, 64)
+    vp = _t(rng, cuda, torch.float32, 4, 16, 1, 64)
+    tab = torch.tensor([[1, 3]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([21], dtype=torch.int32, device=cuda)
+    before = tk.launch_counts()["paged_decode"]
+    got = paged_decode_op(q, kp, vp, tab, lens)
+    assert tk.launch_counts()["paged_decode"] == before + 1
+    _close(got, paged_decode_ref(q, kp, vp, tab, lens), torch.float32)
+    pool4 = torch.zeros(4, 16, 4, 64, device=cuda)
     with pytest.raises(ValueError):
-        paged_decode_op(q, pool, pool, tab, lens)
+        paged_decode_op(q[:, :30].contiguous(), pool4, pool4, tab, lens)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -596,11 +606,12 @@ def test_paged_insert_kernel_wide_head_dims(cuda, hd, dtype):
     assert torch.equal(kp, k2) and torch.equal(v2, vp)
 
 
-@pytest.mark.parametrize("hd", [120, 272])
+@pytest.mark.parametrize("hd", [272, 320])
 def test_attention_kernels_refuse_other_head_dims(cuda, hd):
-    """A head dim that is not a multiple of 16 (120) or is above 256 (272)
-    raises ValueError in each attention kernel's wrapper, before any
-    launch."""
+    """A head dim above 256 (272, 320: no compiled instance, and no config
+    of either package has one) raises ValueError in each attention
+    kernel's wrapper, before any launch. (Dims that are not a multiple of
+    16 run zero-padded: `test_attention_kernels_pad_odd_head_dims`.)"""
     z = lambda *shape: torch.zeros(shape, device=cuda)     # noqa: E731
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     tab = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
@@ -852,3 +863,114 @@ def test_router_decisions_match_sim_fleet_on_card(cuda):
     assert sorted(res[0]) == sorted(res[1]) == list(range(8))
     assert sum(c.prefill[0].prefix_hit_tokens for c in live) > 0
     assert tk.launch_counts()["prefix_prefill"] > before
+
+
+# ---------------------------------------------------------------------------
+# head dims that are not a multiple of 16 (zero-padded in the wrappers),
+# query-head groups above 16 (sliced), non-causal flash_prefill with
+# Sq != Skv (the encoder-decoder's cross-attention), ssd_scan at zamba2-7b
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [72, 200])
+def test_attention_kernels_pad_odd_head_dims(cuda, hd, dtype):
+    """hd 72 and 200 run in flash_prefill (causal, Sq < Skv), in
+    prefix_prefill and in paged_decode / the fused insert + decode: each
+    equals its plain version (at the scale of the true head dim), and
+    the fused op writes the new rows into the unpadded pools."""
+    rng = np.random.default_rng(70 + hd)
+    H, Hkv = 4, 2
+    q = _t(rng, cuda, dtype, 1, 70, H, hd)
+    k = _t(rng, cuda, dtype, 1, 100, Hkv, hd)
+    v = _t(rng, cuda, dtype, 1, 100, Hkv, hd)
+    _close(flash_prefill_op(q, k, v), flash_prefill_op(q, k, v, plain=True),
+           dtype)
+    page, npp = 16, 4
+    kp = _t(rng, cuda, dtype, 1 + npp, page, Hkv, hd)
+    vp = _t(rng, cuda, dtype, 1 + npp, page, Hkv, hd)
+    table = torch.arange(1, 1 + npp, dtype=torch.int32,
+                         device=cuda)[None]
+    plens = torch.tensor([50], dtype=torch.int32, device=cuda)
+    args = (q, k[:, :70], v[:, :70], kp, vp, table, plens)
+    _close(prefix_prefill_op(*args), prefix_prefill_op(*args, plain=True),
+           dtype)
+    qd = _t(rng, cuda, dtype, 1, H, hd)
+    lens = torch.tensor([37], dtype=torch.int32, device=cuda)
+    _close(paged_decode_op(qd, kp, vp, table, lens),
+           paged_decode_ref(qd, kp, vp, table, lens), dtype)
+    kn = _t(rng, cuda, dtype, 1, Hkv, hd)
+    vn = _t(rng, cuda, dtype, 1, Hkv, hd)
+    k2, v2 = kp.clone(), vp.clone()
+    got = paged_insert_decode_op(qd, kn, vn, kp, vp, table, lens)
+    want = paged_insert_decode_ref(qd, kn, vn, k2, v2, table, lens)
+    _close(got, want, dtype)
+    assert torch.equal(kp, k2) and torch.equal(vp, v2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fused", [False, True])
+def test_paged_decode_kernel_group_of_24(cuda, fused, dtype):
+    """A group of 24 query heads a kv head (48 over 2) runs as slices of
+    16 and 8; with the fused insert the row goes in once, with the first
+    slice, and both pools equal the plain version's."""
+    rng = np.random.default_rng(24)
+    B, H, Hkv, hd, page, pps = 3, 48, 2, 128, 16, 8
+    q = _t(rng, cuda, dtype, B, H, hd)
+    kp = _t(rng, cuda, dtype, 1 + B * pps, page, Hkv, hd)
+    vp = _t(rng, cuda, dtype, 1 + B * pps, page, Hkv, hd)
+    table = torch.from_numpy((1 + rng.permutation(B * pps)).reshape(
+        B, pps).astype(np.int32)).to(cuda)
+    lens = torch.tensor([5, 70, 128], dtype=torch.int32, device=cuda)
+    if not fused:
+        _close(paged_decode_op(q, kp, vp, table, lens, softcap=4.0),
+               paged_decode_ref(q, kp, vp, table, lens, softcap=4.0), dtype)
+        return
+    kn = _t(rng, cuda, dtype, B, Hkv, hd)
+    vn = _t(rng, cuda, dtype, B, Hkv, hd)
+    k2, v2 = kp.clone(), vp.clone()
+    before = tk.launch_counts()["paged_insert_decode"]
+    got = paged_insert_decode_op(q, kn, vn, kp, vp, table, lens)
+    assert tk.launch_counts()["paged_insert_decode"] == before + 1
+    _close(got, paged_insert_decode_ref(q, kn, vn, k2, v2, table, lens),
+           dtype)
+    assert torch.equal(kp, k2) and torch.equal(vp, v2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("Sq,Skv", [(64, 1024), (300, 70)])
+def test_flash_prefill_kernel_non_causal_cross(cuda, Sq, Skv, hd, dtype):
+    """Non-causal flash_prefill with queries fewer and more than keys (the
+    decoder's cross-attention over the encoder's frames), 16/16 and 16/4
+    heads, in the model's layout."""
+    rng = np.random.default_rng(Sq + Skv + hd)
+    for H, Hkv in ((16, 16), (16, 4)):
+        q = _t(rng, cuda, dtype, 1, Sq, H, hd)
+        k = _t(rng, cuda, dtype, 1, Skv, Hkv, hd)
+        v = _t(rng, cuda, dtype, 1, Skv, Hkv, hd)
+        before = tk.launch_counts()["flash_prefill"]
+        got = flash_prefill_op(q, k, v, causal=False)
+        assert tk.launch_counts()["flash_prefill"] == before + 1
+        _close(got, flash_prefill_op(q, k, v, causal=False, plain=True),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_kernel_zamba2_shape(cuda, with_h0, dtype):
+    """zamba2-7b's scan: nh 112, hd 64, G 1, N 64, a 600-token prompt in
+    chunks of 256 (the last padded with dt = 0 steps), with and without
+    an initial state."""
+    b, S, nh, hd, G, N, chunk = 1, 768, 112, 64, 1, 64, 256
+    rng = np.random.default_rng(112)
+    args = _ssd_inputs(rng, cuda, dtype, b, S, nh, hd, G, N)
+    args[1][:, 600:] = 0.0
+    h0 = torch.from_numpy(rng.standard_normal((b, nh, hd, N)).astype(
+        np.float32)).to(cuda) if with_h0 else None
+    y, h = ssd_scan_op(*args, chunk=chunk, h0=h0)
+    ry, rh = ssd_scan_op(*args, chunk=chunk, h0=h0, plain=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.float().cpu().numpy(), **SSD_TOLS[dtype])
+    np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(),
+                               **SSD_TOLS[torch.float32])

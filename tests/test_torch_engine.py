@@ -1,7 +1,8 @@
 """The port's paged `Engine` against the JAX `Engine` on yi-6b-smoke:
 greedy f32 tokens must agree token for token (one-shot prefill + decode, a
 fused prefix hit, chunked prefill at two chunk sizes), with the JAX params
-carried over. Plus the port's device rule and its not-yet-ported gates."""
+carried over. Plus the port's device rule and the dense-gather
+`fused_prefix=False` fallback."""
 import jax
 import numpy as np
 import pytest
@@ -151,7 +152,18 @@ def test_default_device_is_the_card():
 
 
 def test_unported_engine_paths_raise_naming_the_roadmap(params):
-    _, tp = params
-    with pytest.raises(NotImplementedError, match="A8"):
-        tx_engine.Engine(CFG, tp, device="cpu", prefix_cache=True,
-                         fused_prefix=False)
+    """The `fused_prefix=False` path, once refused (ROADMAP A8), runs: the
+    prompts of `test_fused_prefix_hit_tokens_match_jax` give the fused
+    path's tokens and prefix hits, and the JAX fallback's stats, with no
+    fused dispatch."""
+    prompts = _prompts(1, [7, 12, 3], shared=32)
+    kw = dict(max_batch=4, max_len=96, page_size=16, prefix_cache=True)
+    fused, feng = _serve(tx_engine, params, prompts, **kw)
+    kw["fused_prefix"] = False
+    got, teng = _serve(tx_engine, params, prompts, **kw)
+    want, jeng = _serve(jx_engine, params, prompts, **kw)
+    assert not teng.fused_prefix and got == fused == want
+    assert teng.prefix_hit_tokens == feng.prefix_hit_tokens == 64
+    ts, js = teng.stats(), jeng.stats()
+    ts.pop("clock_s"), js.pop("clock_s")          # measured, not counted
+    assert ts == js and ts["fused_dispatches"] == 0

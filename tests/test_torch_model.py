@@ -169,8 +169,42 @@ def test_paged_cache_specs_match_jax():
                                   "moonshot-v1-16b-a3b-smoke",
                                   "internvl2-76b-smoke"])
 def test_unported_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch))
+    """The four families the port once refused (hybrid, encdec, moe, vlm)
+    build, and their forward on a batch dict equals JAX's: logits within
+    5e-5 of their largest |value|. The encoder-decoder is held in its two
+    stages (the decoder from JAX's encoder output): its whole chain moves
+    with the f32 summation order of attention as much as JAX's own two
+    attention oracles do (`tests/test_torch_encdec.py`)."""
+    from repro.models import encdec as jx_encdec
+    from repro_torch.models import encdec as tx_encdec
+    cfg, jcfg = get_config(arch), jx_get_config(arch)
+    jm, tm = jx_build(jcfg), build_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = from_jax(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(1)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (2, 12)).astype(
+        np.int32)}
+    if cfg.frontend_tokens:
+        b["frontend_embeds"] = (0.1 * rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.family == "encdec":
+        b["src_embeds"] = (0.3 * rng.standard_normal(
+            (2, 10, cfg.d_model))).astype(np.float32)
+        enc = jx_encdec.encode(jp, jnp.asarray(b["src_embeds"]), jcfg)
+        _close_scaled(tx_encdec.encode(
+            tp, torch.from_numpy(b["src_embeds"]), cfg), enc)
+        jl, _ = jx_encdec._decoder_forward(jp, jnp.asarray(b["tokens"]),
+                                           enc, jcfg, (8, 8))
+        tl, _ = tx_encdec._decoder_forward(
+            tp, torch.from_numpy(b["tokens"]),
+            torch.from_numpy(np.array(enc)), cfg, (8, 8))
+    else:
+        jl, _ = jm.forward(jp, {k: jnp.asarray(v) for k, v in b.items()},
+                           attn_blocks=(8, 8))
+        tl, _ = tm.forward(tp, {k: torch.from_numpy(v)
+                                for k, v in b.items()}, attn_blocks=(8, 8))
+    assert tuple(tl.shape) == jl.shape
+    _close_scaled(tl, jl)
 
 
 def test_supports_paged_gating_matches_jax():
