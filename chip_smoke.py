@@ -127,6 +127,24 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    8 decode steps on the slab): logits through the kernels against the
    plain versions, f32 and bf16, held to `FACADE_BOUNDS`, and each
    kernel's launches against the path's count.
+14. training: (a) the backward kernel `flash_prefill_bwd` against
+   `flash_prefill_bwd_ref` (each gradient within `BWD_BOUNDS` of its
+   largest |value|, two calls' bits equal) and the forward's LSE against
+   the plain LSE (`LSE_TOL`), f32 and bf16, at yi-6b's training shape
+   (B=4, S=1024) and at gemma3-1b's, seamless-m4t-large-v2's encoder and
+   cross-attention and zamba2-7b's (hd 112) attention, timed against
+   their plain versions and SDPA's backward; (b) yi-6b at full width cut
+   to 8 layers (`train_config`), bf16 compute, f32 params and AdamW,
+   remat, B=4 x S=1024 of `SyntheticTokens`, attention projections at
+   standard scales: one step's loss, grad_norm and every gradient leaf
+   through the kernels against the plain versions (`TRAIN_BOUNDS`), with
+   `flash_prefill` 16 and `flash_prefill_bwd` 8 launches a step; then 5
+   steps timed (loss, wall time after a synchronise, tokens/s, MFU
+   against 989 TF/s, peak memory) and a profile of one; (c) a restart of
+   that step: checkpoint at step 2, restore into fresh tensors, run to
+   step 4, equal to the straight run (`restart_phase`); (d) the launcher
+   `python -m repro_torch.launch.train` on yi-6b-smoke for 20 steps with
+   checkpoints every 10, then again: it resumes at step 20.
 
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
@@ -160,6 +178,10 @@ SOURCES = {
                       "src/repro/kernels/flash_prefill/kernel.py:78"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:85"),
+    # the gradient of flash_prefill: JAX takes it through the jnp oracle
+    # (src/repro/models/attention.py:44), the TPU kernel has no backward
+    "flash_prefill_bwd": ("src/repro_torch/csrc/flash_prefill_bwd.cu",
+                          "src/repro/kernels/flash_prefill/kernel.py:78"),
 }
 # the kernels each served path runs (their launches are read from its run)
 PATHS = {"yi-6b": ("paged_decode", "paged_insert", "prefix_prefill",
@@ -176,7 +198,8 @@ PATHS = {"yi-6b": ("paged_decode", "paged_insert", "prefix_prefill",
                        "paged_insert"),
          "seamless-m4t-large-v2": ("flash_prefill", "paged_decode",
                                    "paged_insert"),
-         "internvl2-76b": ("flash_prefill", "paged_decode", "paged_insert")}
+         "internvl2-76b": ("flash_prefill", "paged_decode", "paged_insert"),
+         "train": ("flash_prefill", "flash_prefill_bwd")}
 # the summary line's rows: (name, kernel, path, kernel-phase row[, the
 # row's dtype, default float32: the dtype the path runs])
 SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
@@ -211,7 +234,11 @@ SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
     ("flash_prefill@seamless-m4t-large-v2", "flash_prefill",
      "seamless-m4t-large-v2", "flash_prefill_seamless_cross_s64"),
     ("paged_decode@seamless-m4t-large-v2", "paged_decode",
-     "seamless-m4t-large-v2", "slab_decode_seamless_cross_b1")]
+     "seamless-m4t-large-v2", "slab_decode_seamless_cross_b1"),
+    ("flash_prefill@train", "flash_prefill", "train",
+     "flash_prefill_lse_yi6b_train", "bfloat16"),
+    ("flash_prefill_bwd@train", "flash_prefill_bwd", "train",
+     "flash_prefill_bwd_yi6b_train", "bfloat16")]
 # whole-model bf16 check: kernel-path logits within this fraction of the
 # plain path's largest |logit|. Both paths run the same bf16 matmuls; they
 # differ only in where attention rounds to bf16 and in the f32 summation
@@ -1328,9 +1355,15 @@ def device_profile(fn, label, annotation=None):
     n = sum(count.values())
     busy = sum(by_name.values())
     top = [(k[:60], round(v, 3)) for k, v in by_name.most_common(5)]
-    # the port's own kernels, by the name of the op they serve
-    ported = {op: round(sum(v for k, v in by_name.items() if op in k), 3)
-              for op in SOURCES if any(op in k for k in by_name)}
+    # the port's own kernels, by the name of the op they serve (the
+    # longest op name a kernel's name holds: flash_prefill_bwd_* kernels
+    # are not flash_prefill's)
+    ported = collections.Counter()
+    for k, v in by_name.items():
+        ops = [op for op in SOURCES if op in k]
+        if ops:
+            ported[max(ops, key=len)] += v
+    ported = {op: round(v, 3) for op, v in ported.items()}
     out = dict(wall_ms=wall_ms, device_busy_ms=busy, kernels=n,
                idle_share=1 - busy / wall_ms if wall_ms else None, top=top,
                ported_ms=ported, launches_by_kernel=dict(count))
@@ -2500,6 +2533,439 @@ def facade_phase(ecfg, vcfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training (yi-6b width, 8 layers) through flash_prefill and its
+# backward kernel
+# ---------------------------------------------------------------------------
+
+# the backward kernel against `flash_prefill_bwd_ref` on the same o, lse
+# and do: each gradient within this fraction of its largest |value|.
+# f32: the same f32 formula in another summation order (~1e-6 of scale
+# in the card tests). bf16: the kernel rounds P and dS to bf16 before its
+# products (2^-9 each, as FlashAttention-2 does) and stores bf16; a wrong
+# kernel gives O(1) differences. The forward's LSE (natural log, ~5 at
+# these shapes) within atol 2e-4 + rtol 2e-5 of the plain one: the bf16
+# kernel forms its row sums from ex2.approx, ~2 ulp a term.
+BWD_BOUNDS = {"float32": 5e-5, "bfloat16": 2e-2}
+LSE_TOL = dict(atol=2e-4, rtol=2e-5)
+# (row name, B, H, Hkv, Sq, Skv, hd, causal, window)
+TRAIN_SHAPES = (
+    ("yi6b_train", 4, 32, 4, 1024, 1024, 128, True, 0),
+    ("gemma3_s1024_w512", 1, 4, 1, 1024, 1024, 256, True, 512),
+    ("seamless_encoder", 1, 16, 16, 1024, 1024, 64, False, 0),
+    ("seamless_cross", 1, 16, 16, 64, 1024, 64, False, 0),
+    ("zamba2_s1024", 1, 32, 32, 1024, 1024, 112, True, 0))
+# The 8-layer yi-6b train step through the kernels against the same step
+# through the plain versions (`plain=True`), bf16 compute, f32 params, the
+# attention projections at standard scales (C1). Both paths run the same
+# bf16 matmuls; they differ where attention rounds to bf16 (the kernels
+# round P and dS before their products, the plain path only its outputs)
+# and in f32 summation order. Bounds: the loss (~11, a mean over 4096
+# tokens) within 2e-2; every gradient leaf within 0.1 of its largest
+# |grad| (as LOGIT_BOUND; a wrong backward gives O(1)); grad_norm within
+# 2e-2 relative.
+TRAIN_BOUNDS = {"loss": 2e-2, "leaf": 0.1, "grad_norm": 2e-2}
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 4, 1024, 5
+
+
+def mask_pairs(Sq, Skv, causal, window):
+    """Visible (query, key) pairs of one head: what the work depends on."""
+    from repro_torch.models.attention import attention_mask
+    return int(attention_mask(Sq, Skv, causal, window, "cuda").sum())
+
+
+def train_kernel_rows(dtype, name, B, H, Hkv, Sq, Skv, hd, causal, window,
+                      seed):
+    """At one shape: the backward kernel against `flash_prefill_bwd_ref` on
+    the plain forward's o and lse (and two calls' bits), the forward's LSE
+    against the plain LSE, and the times of the backward kernel, its plain
+    version and SDPA's backward (the library yardstick). Returns the
+    backward's row and the forward-with-LSE row."""
+    import torch
+    from repro_torch.kernels.flash_prefill.kernel import (flash_prefill,
+                                                          flash_prefill_bwd)
+    from repro_torch.kernels.flash_prefill.ref import (flash_prefill_bwd_ref,
+                                                       flash_prefill_ref)
+    dn = dtype_name(dtype)
+    es = torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def model_layout(S, n):      # (B, S, n, hd) viewed as (B, n, S, hd)
+        return torch.randn((B, S, n, hd), generator=gen, device="cuda") \
+            .to(dtype).transpose(1, 2)
+    q, k, v = model_layout(Sq, H), model_layout(Skv, Hkv), \
+        model_layout(Skv, Hkv)
+    do = model_layout(Sq, H)
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_prefill_ref(q, k, v, return_lse=True, **kw)
+    lse = lse.float().contiguous()
+    lse_k = torch.empty_like(lse)
+    o_k = flash_prefill(q, k, v, lse=lse_k, **kw)
+    got = flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_prefill_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e = float((g.float() - w.float()).abs().max())
+        s = float(w.float().abs().max())
+        errs[g_name] = (e, s)
+        ok = ok and e <= BWD_BOUNDS[dn] * s
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    lse_err = float((lse_k - lse).abs().max())
+    lse_ok = bool((lse_k - lse).abs().le(
+        LSE_TOL["atol"] + LSE_TOL["rtol"] * lse.abs()).all())
+    o_err, o_ok = max_err(o_k, o, dn)
+    pairs = mask_pairs(Sq, Skv, causal, window) * B
+    fwd_flops = 4 * pairs * H * hd
+    qo_bytes = B * H * Sq * hd * es
+    kv_bytes_ = B * Hkv * Skv * hd * es
+
+    # the library yardstick: SDPA's backward on the same inputs (GQA by the
+    # library), never called by the port
+    mask = None
+    if window:
+        from repro_torch.models.attention import attention_mask
+        mask = attention_mask(Sq, Skv, causal, window, "cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, mask=mask, causal=causal and not window
+               and Sq == Skv)
+
+    def lib_bwd():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    shape = (f"B={B} Sq={Sq} Skv={Skv} {'causal' if causal else 'non-causal'}"
+             f"{f' window={window}' if window else ''} H={H} Hkv={Hkv} "
+             f"hd={hd}")
+    bwd = dict(
+        shape=shape, max_abs_err=max(e for e, _ in errs.values()),
+        grad_err_of_scale={g: [e, s] for g, (e, s) in errs.items()},
+        bound_of_scale=BWD_BOUNDS[dn], ok=ok and same,
+        repeat_identical=same,
+        ms=time_ms(lambda: flash_prefill_bwd(q, k, v, o, lse, do, **kw)),
+        plain_ms=time_ms(lambda: flash_prefill_bwd_ref(q, k, v, o, lse, do,
+                                                       **kw), iters=3),
+        library_ms=time_ms(lib_bwd),
+        library="scaled_dot_product_attention backward",
+        bytes=3 * qo_bytes + 2 * kv_bytes_ + B * H * Sq * 4
+        + qo_bytes + 2 * kv_bytes_,
+        flops=int(2.5 * fwd_flops))
+    fwd = dict(
+        shape=shape + " with LSE", max_abs_err=o_err, lse_max_abs_err=lse_err,
+        ok=o_ok and lse_ok,
+        ms=time_ms(lambda: flash_prefill(q, k, v, lse=lse_k, **kw)),
+        plain_ms=time_ms(lambda: flash_prefill_ref(q, k, v, return_lse=True,
+                                                   **kw), iters=3),
+        library_ms=time_ms(lambda: sdpa(q, k, v, mask=mask,
+                                        causal=causal and not window
+                                        and Sq == Skv)),
+        library="scaled_dot_product_attention",
+        bytes=2 * qo_bytes + 2 * kv_bytes_ + B * H * Sq * 4,
+        flops=fwd_flops)
+    log(f"kernel flash_prefill_bwd {name} {dn}: grads (max_abs_err, "
+        f"max|ref|) {errs} bound {BWD_BOUNDS[dn]} of max|ref|; "
+        f"repeat_identical={same}; forward LSE max_abs_err={lse_err:.3e} "
+        f"{'ok' if lse_ok else 'MISMATCH'}")
+    del leaves, out
+    return bwd, fwd
+
+
+def train_kernel_phase(dtypes):
+    """14a. `flash_prefill_bwd` and the forward's LSE at the training shape
+    and the other families' attention shapes, f32 and bf16."""
+    import torch
+    results = {}
+    for dtype in dtypes:
+        dn = dtype_name(dtype)
+        rows = {}
+        for i, (name, *shape) in enumerate(TRAIN_SHAPES):
+            bwd, fwd = train_kernel_rows(dtype, name, *shape, seed=100 + i)
+            rows[f"flash_prefill_bwd_{name}"] = bwd
+            rows[f"flash_prefill_lse_{name}"] = fwd
+            gc.collect()
+            torch.cuda.empty_cache()
+        finish_rows(rows, dn)
+        results[dn] = rows
+    return results
+
+
+def train_config():
+    """yi-6b at full width with its depth cut to TRAIN_LAYERS (f32 params
+    and grads and both AdamW moments, 16 bytes a parameter: 32 layers
+    would need ~97 GB)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("yi-6b"), num_layers=TRAIN_LAYERS,
+                               name=f"yi-6b-{TRAIN_LAYERS}l")
+
+
+def train_flops(cfg, B, S):
+    """Model flops of one train step (MFU's numerator): 3 x the forward
+    (forward, then the backward's two products per forward product; the
+    remat recompute not counted), the forward being 2 flops per matmul
+    parameter per token (the layers' projections and FFN and the lm_head;
+    the embedding lookup is not a product) plus causal attention's two
+    products, 2 x 2 H hd flops per visible key, (S + 1) / 2 keys per query
+    on average."""
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    per_layer = d * (H + 2 * Hkv) * hd + H * hd * d + 3 * d * cfg.d_ff
+    n_mm = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = cfg.num_layers * 4 * H * hd * (S + 1) / 2
+    return 3 * B * S * (2 * n_mm + attn), n_mm
+
+
+def train_step_phase(cfg):
+    """14b. The 8-layer yi-6b train step (bf16 compute, f32 params and
+    AdamW, remat, B x S tokens of `SyntheticTokens`) once through the
+    kernels and once through the plain versions from the same params,
+    held to TRAIN_BOUNDS, with the kernels' launches counted; then
+    TRAIN_STEPS steps timed, and a profile of one more."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.api import build_model
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                global_norm, tree_leaves)
+    from repro_torch.training.train_step import (make_loss_fn,
+                                                 make_train_step,
+                                                 value_and_grad)
+    model = build_model(cfg)
+    params = init_params(cfg)
+    standard_attention_scales(params, cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in data.batch_at(i).items()}
+    out = dict(config=cfg.name, params=n_params)
+    b0 = batch(0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    tot_k, met_k, g_k = value_and_grad(make_loss_fn(model), params, b0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    tot_p, met_p, g_p = value_and_grad(make_loss_fn(model, plain=True),
+                                       params, b0)
+    torch.cuda.synchronize()
+    want = {"flash_prefill": 2 * cfg.num_layers,
+            "flash_prefill_bwd": cfg.num_layers}
+    got = {k: counts[k] for k in want}
+    loss_k, loss_p = float(met_k["loss"]), float(met_p["loss"])
+    gn_k, gn_p = float(global_norm(g_k)), float(global_norm(g_p))
+    worst, worst_leaf = 0.0, ""
+    for (key, a), b in zip(_named_leaves(g_k), tree_leaves(g_p)):
+        frac = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if frac > worst:
+            worst, worst_leaf = frac, key
+    del g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (abs(loss_k - loss_p) <= TRAIN_BOUNDS["loss"]
+          and worst <= TRAIN_BOUNDS["leaf"]
+          and abs(gn_k - gn_p) <= TRAIN_BOUNDS["grad_norm"] * gn_p
+          and got == want and math.isfinite(loss_k))
+    out.update(loss_kernels=loss_k, loss_plain=loss_p, grad_norm_kernels=gn_k,
+               grad_norm_plain=gn_p, worst_leaf_of_scale=worst,
+               worst_leaf=worst_leaf, launches=counts, expected=want,
+               bounds=TRAIN_BOUNDS)
+    log(f"train {cfg.name} bf16 B={TRAIN_B} S={TRAIN_S} ({n_params} "
+        f"params), one step, kernels vs plain versions: loss {loss_k:.6f} "
+        f"vs {loss_p:.6f} (bound {TRAIN_BOUNDS['loss']}); grad_norm "
+        f"{gn_k:.6f} vs {gn_p:.6f} (bound {TRAIN_BOUNDS['grad_norm']} "
+        f"relative); worst leaf {worst_leaf} {worst:.4e} of its max|grad| "
+        f"(bound {TRAIN_BOUNDS['leaf']}); launches {got} (expected {want})")
+    if not ok:
+        raise SystemExit("train: the kernel path's step is beyond its bounds "
+                         "or off its kernels")
+
+    step = make_train_step(model, AdamWConfig())
+    opt = adamw_init(params)
+    flops, n_mm = train_flops(cfg, TRAIN_B, TRAIN_S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        bi = batch(i)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, bi)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = launch_counts()
+        steps.append(dict(step=i, loss=loss, grad_norm=float(m["grad_norm"]),
+                          s=dt, tokens_per_s=TRAIN_B * TRAIN_S / dt,
+                          mfu=flops / dt / PEAK_FLOPS["bfloat16"],
+                          launches={k: c[k] for k in want}))
+        log(f"train {cfg.name} step {i}: loss {loss:.6f} grad_norm "
+            f"{steps[-1]['grad_norm']:.4f} {dt * 1e3:.2f} ms "
+            f"{steps[-1]['tokens_per_s']:.0f} tokens/s MFU "
+            f"{steps[-1]['mfu']:.4f} launches {steps[-1]['launches']}")
+        if steps[-1]["launches"] != want or not math.isfinite(loss):
+            raise SystemExit("train: a step was off its kernels or not "
+                             "finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(s["s"] for s in steps[1:])
+    out.update(steps=steps, median_step_s=med,
+               tokens_per_s=TRAIN_B * TRAIN_S / med,
+               mfu=flops / med / PEAK_FLOPS["bfloat16"], flops=flops,
+               matmul_params=n_mm, peak_gib=peak)
+    log(f"train {cfg.name}: median step (steps 1..{TRAIN_STEPS - 1}) "
+        f"{med * 1e3:.2f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{out['mfu']:.4f} of 989 TF/s (model flops {flops:.4e} a step = "
+        f"3 x B S (2 x {n_mm} matmul params + causal attention); remat's "
+        f"recompute not counted), peak {peak:.2f} GiB")
+    k = TRAIN_STEPS
+    out["profile"] = device_profile(
+        lambda: step(params, opt, batch(k)), f"{cfg.name} train step")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, {"launches": counts}
+
+
+def _named_leaves(tree):
+    """(path, leaf) in `tree_leaves` order."""
+    out = []
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                rec(f"{prefix}/{k}" if prefix else k, node[k])
+        else:
+            out.append((prefix, node))
+    rec("", tree)
+    return out
+
+
+def restart_phase(cfg):
+    """14c. Restart at the train step's own size (`train_config`, bf16,
+    remat, B x S tokens, seed-0 params at standard attention scales): a
+    straight run of 4 steps that checkpoints after step 2, a second
+    straight run, and a run restored from the checkpoint into fresh
+    tensors for steps 2..4. The restored run must equal the straight run
+    to the bit where the two straight runs do; where they do not (an op
+    of the step is nondeterministic on the card: the candidates are the
+    embedding's backward, `index_put_` with accumulate, and the
+    cross-entropy's gather backward), within 2 x (lr_3 + lr_4) of it, the
+    most that Adam's sign-like step can move a param in two steps. The
+    checkpoint (23 GB: f32 params and both moments) is written at level 0,
+    zlib's stored blocks: the card's machine has no zstandard, and zlib's
+    default level would take minutes over it."""
+    import shutil
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                tree_leaves)
+    from repro_torch.training.train_step import make_train_step
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig()
+    step = make_train_step(model, opt_cfg)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S))
+    root = ROOT / "build" / "train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def fresh():
+        p = init_params(cfg)
+        standard_attention_scales(p, cfg)
+        return p, adamw_init(p)
+
+    def run(p, o, a, b, save_at=None):
+        for i in range(a, b):
+            bi = {k: torch.from_numpy(v).to("cuda")
+                  for k, v in data.batch_at(i).items()}
+            p, o, _ = step(p, o, bi)
+            if save_at == i + 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save(str(root / f"step_{i + 1}"), i + 1, p, o, level=0)
+                times["save_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return p, o
+
+    def diff(x, y):
+        leaves = list(zip(tree_leaves(x[0]) + tree_leaves(x[1]),
+                          tree_leaves(y[0]) + tree_leaves(y[1])))
+        return (all(bool(torch.equal(a, b)) for a, b in leaves),
+                max(float((a.float() - b.float()).abs().max())
+                    for a, b in leaves))
+    times = {}
+    straight = run(*fresh(), 0, 4, save_at=2)
+    again = run(*fresh(), 0, 4)
+    det, det_diff = diff(straight, again)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s, p_r, o_r, _ = ckpt.restore(str(root / "step_2"), *straight,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    times["restore_s"] = time.perf_counter() - t0
+    restored = run(p_r, o_r, s, 4)
+    exact, max_diff = diff(straight, restored)
+    bound = 2 * sum(opt_cfg.lr * min(t / opt_cfg.warmup_steps, 1.0)
+                    for t in (3, 4))
+    ok = s == 2 and (exact if det else max_diff <= bound)
+    log(f"train restart {cfg.name}: checkpoint at step 2 (saved in "
+        f"{times['save_s']:.1f}s, restored into fresh tensors in "
+        f"{times['restore_s']:.1f}s), steps 2..4; two straight runs "
+        f"bit-equal {det} (max diff {det_diff:.3e}); restored vs straight "
+        f"bit-equal {exact} (max diff {max_diff:.3e}"
+        f"{'' if det else f', bound {bound:.3e}'})")
+    shutil.rmtree(root, ignore_errors=True)
+    del straight, restored, p_r, o_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("train: the restored run left the straight run")
+    return dict(step=s, straight_runs_bit_equal=det,
+                straight_runs_max_diff=det_diff, bit_equal=exact,
+                max_diff=max_diff, bound=None if det else bound, **times)
+
+
+def launcher_phase():
+    """14d. `python -m repro_torch.launch.train --arch yi-6b-smoke --steps
+    20 --ckpt-every 10` on the card, then the same command again, which
+    must resume at step 20 and run no step."""
+    import os
+    import shutil
+    ck = ROOT / "build" / "train_launcher"
+    shutil.rmtree(ck, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "yi-6b-smoke", "--steps", "20", "--ckpt-dir", str(ck),
+           "--ckpt-every", "10"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=ROOT, timeout=300)
+        runs.append((r, time.perf_counter() - t0))
+    (first, t1), (second, t2) = runs
+    lines = first.stdout.splitlines()
+    losses = [float(ln.split()[4]) for ln in lines
+              if ln.startswith("[train] step ")]
+    ok = (first.returncode == 0 and second.returncode == 0
+          and len(losses) == 20 and all(map(math.isfinite, losses))
+          and "[train] checkpointed step 10" in lines
+          and "[train] checkpointed step 20" in lines
+          and second.stdout.splitlines() == ["[train] resumed from step 20"])
+    log(f"train launcher yi-6b-smoke on the card: 20 steps in {t1:.1f}s, "
+        f"loss {losses[0] if losses else float('nan'):.4f} -> "
+        f"{losses[-1] if losses else float('nan'):.4f}, checkpoints at 10 "
+        f"and 20; second run {t2:.1f}s: {second.stdout.strip()!r}")
+    shutil.rmtree(ck, ignore_errors=True)
+    if not ok:
+        raise SystemExit(f"train: the launcher failed or did not resume:\n"
+                         f"{first.stdout}{first.stderr}{second.stdout}"
+                         f"{second.stderr}")
+    return dict(first_s=t1, second_s=t2, losses=losses,
+                second_stdout=second.stdout)
+
+
+# ---------------------------------------------------------------------------
 
 def ptxas_summary(build_log: Path) -> str:
     """Registers per kernel instance and the instances that spill, from
@@ -2650,13 +3116,23 @@ def main() -> int:
     record["facade"] = facade_phase(get_config("seamless-m4t-large-v2"),
                                     get_config("internvl2-76b"))
 
+    # -- training: yi-6b at full width, 8 layers ----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dn, rows in train_kernel_phase(dtypes).items():
+        record["kernels"][dn].update(rows)
+    record["train"], train_path = train_step_phase(train_config())
+    record["train_restart"] = restart_phase(train_config())
+    record["train_launcher"] = launcher_phase()
+
     serves = {"yi-6b": record["serve"], "mamba2-2.7b": record["serve_mamba"],
               "gemma3-1b": record["serve_gemma"],
               "launch.serve": record["launch"], "router": record["router"],
               "moonshot-v1-16b-a3b": record["moonshot"]["serve"],
               "zamba2-7b": record["zamba2"]["serve"],
               "seamless-m4t-large-v2":
-                  record["facade"]["seamless"]["float32"]}
+                  record["facade"]["seamless"]["float32"],
+              "train": train_path}
     rows = []
     for name, kern, path, row, *dt in SUMMARY:
         src, replaces = SOURCES[kern]

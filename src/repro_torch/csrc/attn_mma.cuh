@@ -151,6 +151,14 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "memory");
 }
 
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
 // d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -405,6 +413,27 @@ __device__ __forceinline__ void store_rows_bf16(const float (&o)[HD / 8][4],
                                                o[n][2 * i + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t4) = v;
     }
+  }
+}
+
+// The natural-log log-sum-exp of a warp's rows (lane/4 and lane/4 + 8)
+// from the online softmax's running max m and this thread's parts l2 of
+// the sums: m * mscale + ln(max(l, 1e-37)), mscale the factor that turns
+// m into the units of the scaled scores (see softmax_scores). Warp-local
+// rows r < n_valid go to dst[r].
+__device__ __forceinline__ void store_lse_rows(const float (&m)[2],
+                                               const float (&l2)[2],
+                                               int n_valid, float mscale,
+                                               float* dst) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l2[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = g + 8 * i;
+    if (t4 == 0 && r < n_valid)
+      dst[r] = m[i] * mscale + logf(fmaxf(l, DEN_MIN));
   }
 }
 

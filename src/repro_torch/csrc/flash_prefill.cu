@@ -71,6 +71,7 @@ struct FlashArgs {
   int H, Hkv, Sq, Skv, causal, window, nq;
   float scale, softcap;
   int hd;           // the head dim; the instance's HD >= hd (attn_common)
+  float* lse;       // (B, H, Sq) f32 log-sum-exp, or null (serving)
 };
 
 // The kv walk of one 64-row q tile: tiles kv_begin + 64 t for t < nt.
@@ -291,6 +292,12 @@ __global__ void __launch_bounds__(128 * (QH + 1), 1)
                         [&](int r) {
       return ob + (long long)(w.q0 + wr0 + r) * a.oss;
     });
+    // without a cap, m is the row max of the raw scores q.k (see
+    // softmax_scores), so the natural-log LSE is scale m + ln l
+    if (a.lse != nullptr)
+      store_lse_rows(m, l, a.Sq - w.q0 - wr0, a.softcap > 0.f ? 1.f : a.scale,
+                     a.lse + ((long long)b * a.H + h0 + hq) * a.Sq + w.q0 +
+                         wr0);
   }
 }
 
@@ -363,6 +370,16 @@ __global__ void __launch_bounds__(SIMT_NT)
   simt_store<HD>(st, a.Sq - w.q0, hd, [&](int r) {
     return ob + (long long)(w.q0 + r) * a.oss;
   });
+  if (a.lse != nullptr && threadIdx.x % 16 == 0) {
+    // m is the max of the scaled (and capped) scores: LSE = m + ln l
+    float* lse = a.lse + ((long long)b * a.H + h) * a.Sq + w.q0;
+#pragma unroll
+    for (int i = 0; i < SIMT_RPT; ++i) {
+      const int r = threadIdx.x / 16 + 8 * i;
+      if (r < a.Sq - w.q0)
+        lse[r] = st.m[i] + logf(fmaxf(st.l[i], DEN_MIN));
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -477,19 +494,23 @@ cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
 // every stride is a whole number of 16-byte chunks (the wrapper checks).
 // qh: query heads a block of the bf16 kernel (1, or 2 where H / Hkv is
 // even and hd <= 128). hd: a multiple of 16 up to 256 (attn_common.cuh).
-// Returns a cudaError_t code.
+// lse: a (B, H, Sq) f32 buffer for each row's natural-log log-sum-exp of
+// its scaled (and capped) visible scores, which the backward
+// (flash_prefill_bwd.cu) recomputes P from, or null. Returns a
+// cudaError_t code.
 extern "C" int flash_prefill(int dtype, int hd, const void* q, const void* k,
                              const void* v, void* o, const long long* st,
                              int B, int H, int Hkv, int Sq, int Skv,
                              int causal, int window, float scale,
-                             float softcap, int qh, void* stream) {
+                             float softcap, int qh, float* lse,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const FlashArgs a{q,      k,      v,      o,      st[0],  st[1],
                     st[2],  st[3],  st[4],  st[5],  st[6],  st[7],
                     st[8],  st[9],  st[10], st[11], H,      Hkv,
                     Sq,     Skv,    causal, window, (Sq + 63) / 64,
-                    scale,  softcap, hd};
+                    scale,  softcap, hd,     lse};
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     ATTN_DISPATCH_HD(hd, HD, PAD, err = (launch_simt<HD, PAD>(a, B, s)));

@@ -11,7 +11,7 @@ from typing import Dict
 
 
 def _launchers():
-    from .flash_prefill.kernel import flash_prefill
+    from .flash_prefill.kernel import flash_prefill, flash_prefill_bwd
     from .paged_decode.kernel import (paged_decode, paged_insert,
                                       paged_insert_decode)
     from .prefix_prefill.kernel import prefix_prefill
@@ -19,7 +19,7 @@ def _launchers():
     return {"paged_decode": paged_decode, "paged_insert": paged_insert,
             "paged_insert_decode": paged_insert_decode,
             "prefix_prefill": prefix_prefill, "flash_prefill": flash_prefill,
-            "ssd_scan": ssd_scan}
+            "flash_prefill_bwd": flash_prefill_bwd, "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -32,7 +32,9 @@ _F = ctypes.c_float
 # ctypes never truncates them to 32 bits
 SIGNATURES = {
     "flash_prefill": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _F, _F, _I, _P],
+                      _I, _F, _F, _I, _P, _P],
+    "flash_prefill_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "prefix_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _I, _F, _F, _P],
     "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -184,6 +186,18 @@ def require_cuda(name: str, *tensors: torch.Tensor):
     if dev.index not in (None, torch.cuda.current_device()):
         raise ValueError(f"{name}: tensors on {dev} but the current device "
                          f"is cuda:{torch.cuda.current_device()}")
+
+
+def require_no_grad(name: str, *tensors):
+    """The ops whose CUDA kernel has no backward: raise where autograd
+    would need one (grad mode on and an input that requires grad), rather
+    than return a tensor without a `grad_fn` and lose the gradient
+    silently. Their plain versions, on the CPU, stay differentiable."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; "
+                           f"call it under torch.no_grad() or on inputs "
+                           f"that do not require grad")
 
 
 def require_aligned(name: str, *tensors: torch.Tensor):

@@ -6,6 +6,10 @@ model's (B, S, H, hd) tensors come in as transposed views. Every tensor
 must start on 16 bytes with strides in 16-byte units: the f32 kernel
 copies 16-byte chunks, the bf16 kernel reads through TMA tensor maps.
 CUDA tensors only; each launch adds one to `flash_prefill.launches`.
+
+`flash_prefill_bwd` wraps `csrc/flash_prefill_bwd.cu`, the gradient,
+from the forward's output and log-sum-exp; each call (three kernel
+launches) adds one to `flash_prefill_bwd.launches`.
 """
 from __future__ import annotations
 
@@ -43,12 +47,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _check_lse(name, lse, q):
+    B, H, Sq = q.shape[:3]
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"{name}: lse must be a contiguous f32 "
+                         f"{(B, H, Sq)} tensor on {q.device}")
+
+
 def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
-                  softcap: float = 0.0):
+                  softcap: float = 0.0, lse=None):
     """-> (B, H, Sq, hd), laid out like `q`. A head dim that is not a
     multiple of 16 runs zero-padded to the next one (`padded_head_dim`),
-    at the scale of the true head dim."""
+    at the scale of the true head dim. With `lse`, a contiguous (B, H, Sq)
+    f32 buffer, the kernel also writes each row's natural-log log-sum-exp
+    of its scaled (and capped) visible scores, for the backward."""
     require_cuda("flash_prefill", q, k, v)
+    if lse is not None:
+        _check_lse("flash_prefill", lse, q)
     B, H, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
@@ -60,7 +76,7 @@ def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
             pad_head_dim(q, hdp), pad_head_dim(k, hdp), pad_head_dim(v, hdp),
             causal=causal, window=window,
             scale=scale if scale is not None else 1.0 / math.sqrt(hd),
-            softcap=softcap)[..., :hd]
+            softcap=softcap, lse=lse)[..., :hd]
     head_dim_instance("flash_prefill", hd)
     if H % Hkv:
         raise ValueError(f"flash_prefill: H={H} is not a multiple of "
@@ -75,9 +91,56 @@ def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
         DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), strides, B, H, Hkv, Sq, Skv,
         int(bool(causal)), int(window), float(scale), float(softcap or 0.0),
-        qh, stream_of(q)), "flash_prefill")
+        qh, None if lse is None else lse.data_ptr(), stream_of(q)),
+        "flash_prefill")
     flash_prefill.launches += 1
     return out
 
 
 flash_prefill.launches = 0
+
+
+def flash_prefill_bwd(q, k, v, o, lse, do, *, causal=True, window: int = 0,
+                      scale=None, softcap: float = 0.0):
+    """The gradient of `flash_prefill`: q, do and the forward's output o
+    (B, H, Sq, hd), k, v (B, Hkv, Skv, hd) in any 16-byte strides, the
+    forward's (B, H, Sq) f32 log-sum-exp `lse` -> (dq, dk, dv) in the
+    input dtype, laid out like q, k and v. A head dim that is not a
+    multiple of 16 runs zero-padded, as in the forward."""
+    name = "flash_prefill_bwd"
+    require_cuda(name, q, k, v, o, lse, do)
+    B, H, Sq, hd = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype
+                                         for t in (k, v, o, do)):
+        raise TypeError(f"{name}: f32/bf16 tensors of one dtype")
+    if o.shape != q.shape or do.shape != q.shape or v.shape != k.shape:
+        raise ValueError(f"{name}: o and do must be shaped like q, v like k")
+    _check_lse(name, lse, q)
+    if H % Hkv:
+        raise ValueError(f"{name}: H={H} is not a multiple of Hkv={Hkv}")
+    hdp = padded_head_dim(name, hd)
+    if hdp != hd:
+        grads = flash_prefill_bwd(
+            *(pad_head_dim(t, hdp) for t in (q, k, v, o)), lse,
+            pad_head_dim(do, hdp), causal=causal, window=window,
+            scale=scale if scale is not None else 1.0 / math.sqrt(hd),
+            softcap=softcap)
+        return tuple(g[..., :hd] for g in grads)
+    head_dim_instance(name, hd)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    require_aligned(name, q, k, v, o, do, dq, dk, dv)
+    strides = bhs_strides(q, k, v, o, do, dq, dk, dv)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    check(library().flash_prefill_bwd(
+        DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B, H, Hkv, Sq,
+        Skv, int(bool(causal)), int(window), float(scale),
+        float(softcap or 0.0), stream_of(q)), name)
+    flash_prefill_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_prefill_bwd.launches = 0

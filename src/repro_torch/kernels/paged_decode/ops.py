@@ -4,10 +4,12 @@ A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
 plain version. There is no fallback from one to the other: a launch that
 fails raises. `plain=True` runs the plain version on any device; only
 the whole-model check of `chip_smoke.py` asks for it, as the reference
-the kernels are held against.
+the kernels are held against. The kernels have no backward: on the card
+each op raises where autograd would need one (`build.require_no_grad`).
 """
 from __future__ import annotations
 
+from ..build import require_no_grad
 from . import kernel
 from .ref import paged_decode_ref, paged_insert_decode_ref, paged_insert_ref
 
@@ -25,6 +27,7 @@ def paged_decode_op(q, k_pages, v_pages, block_table, lens, *,
     if plain or not q.is_cuda:
         return paged_decode_ref(q, k_pages, v_pages, block_table, lens,
                                 scale=scale, softcap=softcap)
+    require_no_grad("paged_decode_op", q, k_pages, v_pages)
     return kernel.paged_decode(q, k_pages, v_pages, block_table, lens,
                                scale=scale, softcap=softcap)
 
@@ -37,6 +40,7 @@ def paged_insert_op(k_pages, v_pages, k_new, v_new, page_idx, offset, *,
     if plain or not k_pages.is_cuda:
         return paged_insert_ref(k_pages, v_pages, k_new, v_new, page_idx,
                                 offset)
+    require_no_grad("paged_insert_op", k_pages, v_pages, k_new, v_new)
     return kernel.paged_insert(k_pages, v_pages, k_new, v_new, page_idx,
                                offset)
 
@@ -53,6 +57,8 @@ def paged_insert_decode_op(q, k_new, v_new, k_pages, v_pages, block_table,
         return paged_insert_decode_ref(q, k_new, v_new, k_pages, v_pages,
                                        block_table, lens, scale=scale,
                                        softcap=softcap)
+    require_no_grad("paged_insert_decode_op", q, k_new, v_new, k_pages,
+                    v_pages)
     return kernel.paged_insert_decode(q, k_new, v_new, k_pages, v_pages,
                                       block_table, lens, scale=scale,
                                       softcap=softcap)

@@ -4,10 +4,13 @@
 Takes the model layout, q/k/v as (B, S, heads, hd), and hands the kernel
 transposed views (no copy). A CUDA tensor goes to the hand-written kernel,
 a CPU tensor to the plain version; `plain=True` forces the plain version
-for the whole-model check of `chip_smoke.py`.
+for the whole-model check of `chip_smoke.py`. The kernel has no
+backward: on the card the op raises where autograd would need one
+(`build.require_no_grad`).
 """
 from __future__ import annotations
 
+from ..build import require_no_grad
 from . import kernel
 from .ref import prefix_prefill_ref
 
@@ -33,6 +36,8 @@ def prefix_prefill_op(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
                                  prefix_lens, suffix_lens, scale=scale,
                                  softcap=softcap)
     else:
+        require_no_grad("prefix_prefill_op", q, k_suf, v_suf, k_pages,
+                        v_pages)
         out = kernel.prefix_prefill(qt, kt, vt, k_pages, v_pages,
                                     prefix_table, prefix_lens, suffix_lens,
                                     scale=scale, softcap=softcap)

@@ -40,10 +40,12 @@ class Model:
                                    device=device or gen.device, **kw)
 
     @staticmethod
-    def cast(params, dtype, device):
-        """Floating leaves to `dtype` on `device`. A leaf already there is
-        returned as is (`Tensor.to` makes no copy), so engines that share
-        one param tree share its memory."""
+    def cast(params, dtype, device=None):
+        """Floating leaves to `dtype` on `device` (default: where each
+        lies). A leaf already there is returned as is (`Tensor.to` makes
+        no copy), so engines that share one param tree share its memory.
+        `Tensor.to` is differentiable: the train step's loss casts its f32
+        params to the compute dtype here (JAX `Model.cast`)."""
         def leaf(x):
             if isinstance(x, dict):
                 return {k: leaf(v) for k, v in x.items()}
@@ -54,8 +56,9 @@ class Model:
     # ---- compute ----------------------------------------------------
     def forward(self, params, batch, **kw):
         """With a batch dict: full-sequence logits and aux (JAX
-        `Model.forward`). With a token tensor: the module's forward and
-        its (logits, cache, aux)."""
+        `Model.forward`; `remat=True` recomputes each layer in the
+        backward, `attn_blocks` and `plain` pass through). With a token
+        tensor: the module's forward and its (logits, cache, aux)."""
         m = _mod(self.cfg)
         if not isinstance(batch, dict):
             return m.forward(params, batch, self.cfg, **kw)

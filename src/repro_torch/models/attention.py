@@ -116,6 +116,26 @@ def flash_reference(q, k, v, *, causal=True, window: int = 0,
     return out[:, :Sq].to(q.dtype)
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain attention computes in: f32, or f64 for f64
+    inputs (the gradient checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def attention_mask(Sq: int, Skv: int, causal: bool, window: int, device):
+    """(Sq, Skv) bool: key kp visible to query row r, the last Sq of the
+    Skv positions (kp <= Skv - Sq + r when causal, kp > Skv - Sq + r -
+    window with a window)."""
+    qpos = torch.arange(Sq, device=device)
+    kpos = torch.arange(Skv, device=device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= Skv - Sq + qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > Skv - Sq + qpos[:, None] - window
+    return mask
+
+
 def dense_attention(q, k, v, *, causal=True, window: int = 0,
                     scale: Optional[float] = None, logit_softcap: float = 0.0):
     """Naive O(S^2) oracle. q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd)."""
@@ -123,20 +143,15 @@ def dense_attention(q, k, v, *, causal=True, window: int = 0,
     _, Skv, Hkv, _ = k.shape
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    acc = acc_dtype(q.dtype)
     qs = q.reshape(B, Sq, Hkv, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qs.float(), k.float()) * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qs.to(acc), k.to(acc)) * scale
     if logit_softcap:
         s = torch.tanh(s / logit_softcap) * logit_softcap
-    qpos = torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Skv, device=q.device)
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= Skv - Sq + qpos[:, None]
-    if window:
-        mask &= kpos[None, :] > Skv - Sq + qpos[:, None] - window
+    mask = attention_mask(Sq, Skv, causal, window, q.device)
     s = torch.where(mask[None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(acc))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 

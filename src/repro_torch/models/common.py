@@ -8,11 +8,13 @@ runs on one card.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 class TensorSpec(NamedTuple):
@@ -53,6 +55,17 @@ def param(gen: torch.Generator, shape, *, device, dtype=torch.float32,
     v = torch.randn(full, generator=gen, device=device, dtype=torch.float32)
     v.mul_(scale)       # in place: no second full-size temporary
     return v if dtype == torch.float32 else v.to(dtype)
+
+
+def remat_layer(fn, remat: bool):
+    """A layer body `fn` that keeps nothing for the backward and is run
+    again there (JAX `jax.checkpoint` with `nothing_saveable`, per layer):
+    `torch.utils.checkpoint.checkpoint(fn, ..., use_reentrant=False)`
+    where `remat` and grad mode is on; `fn` itself otherwise."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
 
 
 def layer_of(tree, l: int):

@@ -23,7 +23,7 @@ import torch
 from ..kernels.flash_prefill.ops import flash_prefill_op
 from .attention import slab_attend
 from .common import (TensorSpec, apply_norm, embed_lookup, layer_of,
-                     norm_params, param)
+                     norm_params, param, remat_layer)
 from .moe import dense_ffn_apply, dense_ffn_params
 from .transformer import (_out_proj, _qkv, attn_decode, attn_full,
                           attn_params, slab_slots)
@@ -70,45 +70,56 @@ def _proj(x, w):
     return (x @ w.reshape(d, n * hd)).view(*x.shape[:-1], n, hd)
 
 
+def _enc_layer(x, pl, cfg, positions, attn_blocks, plain):
+    h = apply_norm(x, pl["ln1"], cfg)
+    q, k, v = _qkv(pl["attn"], h, cfg, positions, cfg.rope_theta)
+    o = flash_prefill_op(q, k, v, causal=False, block_q=attn_blocks[0],
+                         block_kv=attn_blocks[1], plain=plain)
+    x = x + _out_proj(o, pl["attn"]["wo"])
+    h = apply_norm(x, pl["ln2"], cfg)
+    return x + dense_ffn_apply(pl["ffn"], h, cfg)
+
+
 def encode(params, src_embeds, cfg, attn_blocks=(512, 512),
-           plain: bool = False):
+           plain: bool = False, remat: bool = False):
     """src_embeds: (B, T, d) frame embeddings -> encoder output (B, T, d)."""
     x = src_embeds
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None]
+    layer = remat_layer(_enc_layer, remat)
     for l in range(cfg.encoder_layers):
-        pl = layer_of(params["enc"], l)
-        h = apply_norm(x, pl["ln1"], cfg)
-        q, k, v = _qkv(pl["attn"], h, cfg, positions, cfg.rope_theta)
-        o = flash_prefill_op(q, k, v, causal=False, block_q=attn_blocks[0],
-                             block_kv=attn_blocks[1], plain=plain)
-        x = x + _out_proj(o, pl["attn"]["wo"])
-        h = apply_norm(x, pl["ln2"], cfg)
-        x = x + dense_ffn_apply(pl["ffn"], h, cfg)
+        x = layer(x, layer_of(params["enc"], l), cfg, positions, attn_blocks,
+                  plain)
     return apply_norm(x, params["enc_norm"], cfg)
 
 
+def _dec_layer(x, pl, enc_out, cfg, positions, attn_blocks, plain):
+    h = apply_norm(x, pl["ln1"], cfg)
+    a, kv = attn_full(pl["attn"], h, cfg, "dense", positions, attn_blocks,
+                      plain=plain)
+    x = x + a
+    h = apply_norm(x, pl["lnx"], cfg)
+    xa = pl["xattn"]
+    q = _proj(h, xa["wq"])
+    xk, xv = _proj(enc_out, xa["wk"]), _proj(enc_out, xa["wv"])
+    o = flash_prefill_op(q, xk, xv, causal=False, block_q=attn_blocks[0],
+                         block_kv=attn_blocks[1], plain=plain)
+    x = x + _out_proj(o, xa["wo"])
+    h = apply_norm(x, pl["ln2"], cfg)
+    return x + dense_ffn_apply(pl["ffn"], h, cfg), kv, (xk, xv)
+
+
 def _decoder_forward(params, tgt_tokens, enc_out, cfg, attn_blocks,
-                     return_cache=False, max_len=None, plain=False):
+                     return_cache=False, max_len=None, plain=False,
+                     remat=False):
     x = embed_lookup(params["embed"], tgt_tokens.long())
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ks, vs, xks, xvs = [], [], [], []
+    layer = remat_layer(_dec_layer, remat)
     for l in range(cfg.num_layers):
-        pl = layer_of(params["dec"], l)
-        h = apply_norm(x, pl["ln1"], cfg)
-        a, (k, v) = attn_full(pl["attn"], h, cfg, "dense", positions,
-                              attn_blocks, plain=plain)
-        x = x + a
-        h = apply_norm(x, pl["lnx"], cfg)
-        xa = pl["xattn"]
-        q = _proj(h, xa["wq"])
-        xk, xv = _proj(enc_out, xa["wk"]), _proj(enc_out, xa["wv"])
-        o = flash_prefill_op(q, xk, xv, causal=False, block_q=attn_blocks[0],
-                             block_kv=attn_blocks[1], plain=plain)
-        x = x + _out_proj(o, xa["wo"])
-        h = apply_norm(x, pl["ln2"], cfg)
-        x = x + dense_ffn_apply(pl["ffn"], h, cfg)
+        x, (k, v), (xk, xv) = layer(x, layer_of(params["dec"], l), enc_out,
+                                    cfg, positions, attn_blocks, plain)
         if return_cache:
             ks.append(k)
             vs.append(v)
@@ -133,14 +144,17 @@ def _decoder_forward(params, tgt_tokens, enc_out, cfg, attn_blocks,
     return logits, cache
 
 
-def forward(params, batch, cfg, *, attn_blocks=(512, 512),
+def forward(params, batch, cfg, *, remat=False, attn_blocks=(512, 512),
             return_cache=False, max_len=None, plain: bool = False):
     """batch: {"src_embeds": (B, T, d), "tokens": (B, S)}. Returns
-    (logits, cache, aux)."""
-    enc_out = encode(params, batch["src_embeds"], cfg, attn_blocks, plain)
+    (logits, cache, aux). `remat` recomputes each encoder and decoder
+    layer in the backward (the JAX forward takes the flag and ignores
+    it; recomputing changes no value)."""
+    enc_out = encode(params, batch["src_embeds"], cfg, attn_blocks, plain,
+                     remat)
     logits, cache = _decoder_forward(params, batch["tokens"], enc_out, cfg,
                                      attn_blocks, return_cache, max_len,
-                                     plain)
+                                     plain, remat)
     return logits, cache, 0.0
 
 

@@ -20,7 +20,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .common import (TensorSpec, apply_norm, embed_lookup, layer_of,
-                     norm_params, param)
+                     norm_params, param, remat_layer)
 from .moe import dense_ffn_apply, dense_ffn_params
 from .ssd import mamba_apply, mamba_params, mamba_state_specs, mamba_step
 from .transformer import attn_decode, attn_full, attn_params, slab_slots
@@ -77,14 +77,18 @@ def _shared_block(ps, x, cfg, positions, attn_blocks, plain):
     return x + dense_ffn_apply(ps["ffn"], h, cfg), kv
 
 
-def _mamba_run(layers, n, x, cfg, plain, states):
+def _mamba_block(x, pl, cfg, plain):
+    h = apply_norm(x, pl["ln"], cfg)
+    y, st = mamba_apply(pl["m"], h, cfg, plain=plain)
+    return x + y, st
+
+
+def _mamba_run(layers, n, x, cfg, plain, states, remat=False):
     """Prefill `n` stacked mamba blocks; appends each block's (ssm, conv)
     to `states` when it is a list."""
+    block = remat_layer(_mamba_block, remat)
     for l in range(n):
-        pl = layer_of(layers, l)
-        h = apply_norm(x, pl["ln"], cfg)
-        y, st = mamba_apply(pl["m"], h, cfg, plain=plain)
-        x = x + y
+        x, st = block(x, layer_of(layers, l), cfg, plain)
         if states is not None:
             states.append(st)
     return x
@@ -97,13 +101,14 @@ def _stack_states(states, lead):
             {k: v.reshape(*lead, *v.shape[1:]) for k, v in conv.items()})
 
 
-def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
+def forward(params, tokens, cfg, *, remat=False, attn_blocks=(512, 512),
             return_cache=False, max_len=None, frontend_embeds=None,
             plain: bool = False):
     """tokens: (B, S) int. Returns (logits, cache, aux). With
     `return_cache`, only the last position's logits (B, 1, V) and the
     cache of `cache_specs`' layout, k/v padded to `max_len` (default S).
-    `frontend_embeds` is taken, and unused, as in JAX."""
+    `frontend_embeds` is taken, and unused, as in JAX. `remat` recomputes
+    each mamba block and each shared block in the backward."""
     del frontend_embeds
     every, n_groups, tail = _plan(cfg)
     x = embed_lookup(params["embed"], tokens.long())
@@ -111,17 +116,19 @@ def forward(params, tokens, cfg, *, attn_blocks=(512, 512),
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     g_states = [] if return_cache else None
     ks, vs = [], []
+    shared = remat_layer(_shared_block, remat)
     for g in range(n_groups):
         x = _mamba_run(layer_of(params["groups"], g), every, x, cfg, plain,
-                       g_states)
-        x, (k, v) = _shared_block(params["shared"], x, cfg, positions,
-                                  attn_blocks, plain)
+                       g_states, remat)
+        x, (k, v) = shared(params["shared"], x, cfg, positions, attn_blocks,
+                           plain)
         if return_cache:
             ks.append(k)
             vs.append(v)
     t_states = [] if return_cache and tail else None
     if tail:
-        x = _mamba_run(params["tail"], tail, x, cfg, plain, t_states)
+        x = _mamba_run(params["tail"], tail, x, cfg, plain, t_states,
+                       remat)
 
     x = apply_norm(x, params["final_norm"], cfg)
     if return_cache:

@@ -14,7 +14,7 @@ from typing import Any, Dict
 import torch
 
 from .common import TensorSpec, apply_norm, embed_lookup, layer_of, \
-    norm_params, param
+    norm_params, param, remat_layer
 from .ssd import mamba_apply, mamba_params, mamba_state_specs, mamba_step
 
 
@@ -31,22 +31,27 @@ def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
     }
 
 
-def forward(params, tokens, cfg, *, return_cache=False, max_len=None,
-            attn_blocks=None, frontend_embeds=None, plain: bool = False):
+def _block(x, pl, cfg, plain):
+    h = apply_norm(x, pl["ln"], cfg)
+    y, state = mamba_apply(pl["m"], h, cfg, plain=plain)
+    return x + y, state
+
+
+def forward(params, tokens, cfg, *, remat=False, return_cache=False,
+            max_len=None, attn_blocks=None, frontend_embeds=None,
+            plain: bool = False):
     """tokens: (B, S) int. Returns (logits, cache, aux). With
     `return_cache`, only the last position's logits (B, 1, V) and the
     cache `{"ssm", "conv", "pos"}` of `cache_specs`' layout. `max_len`,
     `attn_blocks` and `frontend_embeds` are taken, and unused, as in JAX
     (a constant-size state, no attention): the engine passes them to
-    every family."""
+    every family. `remat` recomputes each layer in the backward."""
     del max_len, attn_blocks, frontend_embeds
     x = embed_lookup(params["embed"], tokens.long())
     ssm, conv = [], {"x": [], "B": [], "C": []}
+    block = remat_layer(_block, remat)
     for l in range(cfg.num_layers):
-        pl = layer_of(params["layers"], l)
-        h = apply_norm(x, pl["ln"], cfg)
-        y, (s, c) = mamba_apply(pl["m"], h, cfg, plain=plain)
-        x = x + y
+        x, (s, c) = block(x, layer_of(params["layers"], l), cfg, plain)
         if return_cache:
             ssm.append(s)
             for k in conv:

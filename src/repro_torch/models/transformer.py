@@ -32,7 +32,7 @@ from ..kernels.paged_decode.ops import paged_insert_decode_op, paged_insert_op
 from ..kernels.prefix_prefill.ops import prefix_prefill_op
 from .attention import slab_attend, slab_page, slab_pages, slab_table
 from .common import (TensorSpec, apply_norm, apply_rope, embed_lookup,
-                     layer_of, norm_params, param, rmsnorm)
+                     layer_of, norm_params, param, remat_layer, rmsnorm)
 from .moe import dense_ffn_apply, dense_ffn_params, moe_apply, moe_params
 
 LOCAL_ROPE_THETA = 10000.0  # gemma3 local layers
@@ -284,14 +284,15 @@ def _layer_body(x, pl, cfg, kind, positions, attn_blocks, prefix=None,
     return x + f, kv, aux
 
 
-def forward(params, tokens, cfg, *, frontend_embeds=None,
+def forward(params, tokens, cfg, *, frontend_embeds=None, remat=False,
             attn_blocks=(512, 512), return_cache=False, max_len=None,
             prefix_kv=None, prefix_pages=None, prefix_table=None,
             prefix_len=None, pos_offset=0, last_pos=None,
             plain: bool = False):
     """Full-sequence forward. tokens: (B, S) int; `frontend_embeds` (B,
     P, d) go before them (VLM). Returns (logits, cache, aux), aux the sum
-    of the MoE layers' load-balance losses.
+    of the MoE layers' load-balance losses. `remat` recomputes each layer
+    in the backward (`common.remat_layer`).
 
     Prefix reuse: `prefix_kv` maps segment names to {"k", "v"} of shape
     (layers, B, P, Hkv, hd) holding the cached, already-roped KV of the
@@ -321,6 +322,7 @@ def forward(params, tokens, cfg, *, frontend_embeds=None,
             (B,)).contiguous()
     aux_total = 0.0
     cache: Dict[str, Any] = {}
+    body = remat_layer(_layer_body, remat)
     for i, seg in enumerate(layer_plan(cfg)):
         sp = params[f"seg{i}"]
         ppg = prefix_pages.get(f"seg{i}") if prefix_pages is not None \
@@ -333,7 +335,7 @@ def forward(params, tokens, cfg, *, frontend_embeds=None,
                 paged = (ppg["k"][l], ppg["v"][l], prefix_table, plens)
             elif pkv is not None:
                 prefix = (pkv["k"][l], pkv["v"][l])
-            x, (k, v), aux = _layer_body(
+            x, (k, v), aux = body(
                 x, layer_of(sp, l), cfg, seg.kind, positions, attn_blocks,
                 prefix=prefix, prefix_len=prefix_len, paged_prefix=paged,
                 plain=plain)

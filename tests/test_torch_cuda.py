@@ -974,3 +974,153 @@ def test_ssd_scan_kernel_zamba2_shape(cuda, with_h0, dtype):
                                ry.float().cpu().numpy(), **SSD_TOLS[dtype])
     np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(),
                                **SSD_TOLS[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# the gradient: flash_prefill_bwd against flash_prefill_bwd_ref
+# ---------------------------------------------------------------------------
+
+# Each gradient within this fraction of its largest |value| of the plain
+# version's. f32: both run the same f32 formula, in another summation
+# order (~1e-6 of scale at these sizes). bf16: the kernel rounds P and dS
+# to bf16 before its products (2^-9 each, as FlashAttention-2 does) and
+# stores bf16 gradients; a wrong kernel gives O(1) differences.
+BWD_BOUNDS = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+BWD_CASES = [
+    # (B, H, Hkv, Sq, Skv, causal, window, softcap)
+    (2, 4, 2, 130, 130, True, 0, 0.0),       # causal, ragged S
+    (1, 4, 1, 70, 200, True, 0, 0.0),        # offset causal, Sq < Skv
+    (1, 4, 4, 64, 150, False, 0, 0.0),       # cross-attention
+    (2, 2, 2, 100, 100, False, 0, 0.0),      # encoder
+    (1, 6, 2, 160, 160, True, 48, 30.0),     # window + soft cap, group 3
+]
+
+
+def _bwd_inputs(rng, dev, dtype, case, hd):
+    """q, k, v, do in the kernel layout (B, heads, S, hd) as transposed
+    views of model-layout tensors; o and lse from the plain forward."""
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    B, H, Hkv, Sq, Skv, causal, window, cap = case
+    q = _t(rng, dev, dtype, B, Sq, H, hd).transpose(1, 2)
+    k = _t(rng, dev, dtype, B, Skv, Hkv, hd).transpose(1, 2)
+    v = _t(rng, dev, dtype, B, Skv, Hkv, hd).transpose(1, 2)
+    do = _t(rng, dev, dtype, B, Sq, H, hd).transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = flash_prefill_ref(q, k, v, return_lse=True, **kw)
+    return (q, k, v, o, lse.float().contiguous(), do), kw
+
+
+def _grads_close(got, want, dtype):
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert err <= BWD_BOUNDS[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [16, 64, 72, 112, 128, 200, 256])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_prefill_bwd_kernel(cuda, case, hd, dtype):
+    """dq, dk, dv of the kernel against the plain formula on the same o,
+    lse and do, over the masks (causal with and without the Sq < Skv
+    offset, non-causal with Sq != Skv and Sq == Skv, window and soft cap)
+    and the head dims of every instance and padding; one launch counted a
+    call; a second call gives identical bits."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref
+    rng = np.random.default_rng(hd + case[3])
+    args, kw = _bwd_inputs(rng, cuda, dtype, case, hd)
+    before = tk.launch_counts()["flash_prefill_bwd"]
+    got = flash_prefill_bwd(*args, **kw)
+    again = flash_prefill_bwd(*args, **kw)
+    assert tk.launch_counts()["flash_prefill_bwd"] == before + 2
+    _grads_close(got, flash_prefill_bwd_ref(*args, **kw), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_prefill_forward_lse(cuda, case, hd, dtype, monkeypatch):
+    """The forward's log-sum-exp against the plain one (natural log of the
+    scaled, capped visible scores), with one and two query heads a bf16
+    block; the output is the same bits with the buffer as without."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    B, H, Hkv, Sq, Skv, causal, window, cap = case
+    rng = np.random.default_rng(hd)
+    (q, k, v, _, _, _), kw = _bwd_inputs(rng, cuda, dtype, case, hd)
+    _, want = flash_prefill_ref(q, k, v, return_lse=True, **kw)
+    two = dtype == torch.bfloat16 and hd <= 128 and (H // Hkv) % 2 == 0
+    for qh in ((1, 2) if two else (1,)):
+        monkeypatch.setattr(fk, "flash_heads_per_block",
+                            lambda *shape, qh=qh, **_: qh)
+        lse = torch.full((B, H, Sq), float("nan"), device=cuda)
+        out = fk.flash_prefill(q, k, v, lse=lse, **kw)
+        plain_out = fk.flash_prefill(q, k, v, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   atol=2e-4, rtol=2e-5)
+        assert torch.equal(out, plain_out)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_prefill_op_trains_through_the_kernels(cuda, dtype):
+    """Under grad mode the op runs as the autograd Function: its output has
+    a grad_fn, the forward kernel launches once and the backward kernel
+    once, and the gradients match autograd of the plain path."""
+    B, H, Hkv, S, hd = 2, 8, 2, 96, 64
+    rng = np.random.default_rng(5)
+    leaves = [_t(rng, cuda, dtype, B, S, n, hd).requires_grad_(True)
+              for n in (H, Hkv, Hkv)]
+    do = _t(rng, cuda, dtype, B, S, H, hd)
+    before = tk.launch_counts()
+    out = flash_prefill_op(*leaves, causal=True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    after = tk.launch_counts()
+    assert after["flash_prefill"] == before["flash_prefill"] + 1
+    assert after["flash_prefill_bwd"] == before["flash_prefill_bwd"] + 1
+    want = torch.autograd.grad(
+        flash_prefill_op(*leaves, causal=True, plain=True), leaves, do)
+    _grads_close(got, want, dtype)
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """The five ops whose CUDA kernel has no backward raise on a CUDA input
+    that requires grad (grad mode on) instead of returning a tensor
+    without a grad_fn; under no_grad they run."""
+    rng = np.random.default_rng(6)
+    dt = torch.float32
+    B, H, Hkv, hd, page, pps = 2, 4, 2, 64, 16, 4
+    q = _t(rng, cuda, dt, B, H, hd).requires_grad_(True)
+    kp = _t(rng, cuda, dt, B * pps + 1, page, Hkv, hd)
+    vp = _t(rng, cuda, dt, B * pps + 1, page, Hkv, hd)
+    table = (torch.arange(B * pps, device=cuda, dtype=torch.int32)
+             .reshape(B, pps) + 1)
+    lens = torch.tensor([20, 50], dtype=torch.int32, device=cuda)
+    kn = _t(rng, cuda, dt, B, Hkv, hd).requires_grad_(True)
+    vn = _t(rng, cuda, dt, B, Hkv, hd)
+    calls = {
+        "paged_decode_op": lambda: paged_decode_op(q, kp, vp, table, lens),
+        "paged_insert_op": lambda: paged_insert_op(
+            kp, vp, kn, vn, table[:, 0].contiguous(),
+            torch.zeros(B, dtype=torch.int32, device=cuda)),
+        "paged_insert_decode_op": lambda: paged_insert_decode_op(
+            q, kn, vn, kp, vp, table, lens),
+        "prefix_prefill_op": lambda: prefix_prefill_op(
+            _t(rng, cuda, dt, B, 16, H, hd).requires_grad_(True),
+            _t(rng, cuda, dt, B, 16, Hkv, hd),
+            _t(rng, cuda, dt, B, 16, Hkv, hd), kp, vp, table, lens),
+    }
+    xs = _ssd_inputs(rng, cuda, dt, 2, 96, 4, 16, 4, 32)
+    xs[0].requires_grad_(True)
+    calls["ssd_scan_op"] = lambda: ssd_scan_op(*xs, chunk=32)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()

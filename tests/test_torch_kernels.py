@@ -329,6 +329,9 @@ def test_cuda_launchers_refuse_cpu_tensors_without_counting():
     with pytest.raises(ValueError):
         flash_kernel.flash_prefill(q4, q4[:, :2], q4[:, :2])
     with pytest.raises(ValueError):
+        flash_kernel.flash_prefill_bwd(q4, q4[:, :2], q4[:, :2], q4,
+                                       torch.zeros(1, 4, 16), q4)
+    with pytest.raises(ValueError):
         prefix_kernel.prefix_prefill(q4, q4[:, :2], q4[:, :2], pool, pool,
                                      tab, lens)
     paged_decode_op(q, pool, pool, tab, lens)
@@ -336,7 +339,7 @@ def test_cuda_launchers_refuse_cpu_tensors_without_counting():
     assert tk.launch_counts() == {"paged_decode": 0, "paged_insert": 0,
                                   "paged_insert_decode": 0,
                                   "prefix_prefill": 0, "flash_prefill": 0,
-                                  "ssd_scan": 0}
+                                  "flash_prefill_bwd": 0, "ssd_scan": 0}
     assert issubclass(KernelError, RuntimeError)
 
 
