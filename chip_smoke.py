@@ -145,6 +145,24 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    step 4, equal to the straight run (`restart_phase`); (d) the launcher
    `python -m repro_torch.launch.train` on yi-6b-smoke for 20 steps with
    checkpoints every 10, then again: it resumes at step 20.
+15. training the SSM families: (a) the backward kernel `ssd_scan_bwd`
+   against `ssd_scan_bwd_ref` (each gradient within `SSD_BWD_BOUNDS` of
+   its largest |value|, two calls' bits equal), f32 and bf16, at
+   mamba2-2.7b's training shape (b=2, S=2048 in 8 chunks of 256, nh 80,
+   hd 64, G 1, N 128), zamba2-7b's (nh 112, N 64) and a small shape with
+   G=2, `h0` and `dh_final` given and a chunk of 40, timed against the
+   plain version (no library call computes it); (b) mamba2-2.7b at full
+   width and depth, bf16 compute, f32 params and AdamW, remat, B=2 x
+   S=2048 of `SyntheticTokens`: one step's loss, grad_norm and every
+   gradient leaf through the kernels against the plain versions
+   (`TRAIN_BOUNDS`), with `ssd_scan` 128 and `ssd_scan_bwd` 64 launches a
+   step, then 5 timed steps (MFU from `ssm_train_flops`) and a profile;
+   (c) the same for zamba2-7b at full width cut to 14 layers (2 groups of
+   6 and a tail of 2; the shared attention at standard scales):
+   `ssd_scan` 28, `ssd_scan_bwd` 14, `flash_prefill` 4 and
+   `flash_prefill_bwd` 2 launches a step; (d) the launcher
+   `python -m repro_torch.launch.train --arch mamba2-2.7b-smoke --remat`
+   on the card for 10 steps.
 
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
@@ -182,6 +200,10 @@ SOURCES = {
     # (src/repro/models/attention.py:44), the TPU kernel has no backward
     "flash_prefill_bwd": ("src/repro_torch/csrc/flash_prefill_bwd.cu",
                           "src/repro/kernels/flash_prefill/kernel.py:78"),
+    # the gradient of ssd_scan: JAX takes it through the jnp ssd_chunked
+    # (src/repro/models/ssd.py:34), the TPU kernel has no backward
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:85"),
 }
 # the kernels each served path runs (their launches are read from its run)
 PATHS = {"yi-6b": ("paged_decode", "paged_insert", "prefix_prefill",
@@ -199,7 +221,8 @@ PATHS = {"yi-6b": ("paged_decode", "paged_insert", "prefix_prefill",
          "seamless-m4t-large-v2": ("flash_prefill", "paged_decode",
                                    "paged_insert"),
          "internvl2-76b": ("flash_prefill", "paged_decode", "paged_insert"),
-         "train": ("flash_prefill", "flash_prefill_bwd")}
+         "train": ("flash_prefill", "flash_prefill_bwd"),
+         "train-mamba2": ("ssd_scan", "ssd_scan_bwd")}
 # the summary line's rows: (name, kernel, path, kernel-phase row[, the
 # row's dtype, default float32: the dtype the path runs])
 SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
@@ -238,7 +261,9 @@ SUMMARY = [("paged_decode", "paged_decode", "yi-6b", "paged_decode"),
     ("flash_prefill@train", "flash_prefill", "train",
      "flash_prefill_lse_yi6b_train", "bfloat16"),
     ("flash_prefill_bwd@train", "flash_prefill_bwd", "train",
-     "flash_prefill_bwd_yi6b_train", "bfloat16")]
+     "flash_prefill_bwd_yi6b_train", "bfloat16"),
+    ("ssd_scan_bwd@train-mamba2", "ssd_scan_bwd", "train-mamba2",
+     "ssd_scan_bwd_mamba2_train", "bfloat16")]
 # whole-model bf16 check: kernel-path logits within this fraction of the
 # plain path's largest |logit|. Both paths run the same bf16 matmuls; they
 # differ only in where attention rounds to bf16 and in the f32 summation
@@ -2564,6 +2589,26 @@ TRAIN_SHAPES = (
 # |grad| (as LOGIT_BOUND; a wrong backward gives O(1)); grad_norm within
 # 2e-2 relative.
 TRAIN_BOUNDS = {"loss": 2e-2, "leaf": 0.1, "grad_norm": 2e-2}
+# Phase 15's SSM steps also run in f32 compute, kernels against plain
+# versions. Both paths then run the same f32 matmuls (TF32 off) and differ
+# only by the kernels' f32 summation order (~1e-6 of scale a call in the
+# kernel rows). Bounds: the loss within 1e-5 relative; every leaf within
+# 1e-3 of its max|grad|, which leaves room for the per-head leaves
+# (dt_bias, A_log, D), whose gradients are sums over every token of terms
+# that largely cancel; a wrong kernel gives O(1). In bf16 those leaves
+# move with bf16's own rounding through 64 layers (dt_bias 15.7% of its
+# max|grad| between the kernel and plain paths of mamba2-2.7b on an H100,
+# against TRAIN_BOUNDS' 0.1). So there each leaf k has its bf16 noise
+# n_k, the plain bf16 step's distance from the plain f32 step (the
+# truth), and three checks: n_k <= BF16_NOISE_CEILING, above which bf16
+# cannot witness the leaf and the phase fails; the kernel bf16 step within
+# max(0.1, 2 n_k) of the plain bf16 step, two bf16 paths being about
+# sqrt(2) noises apart; and the kernel bf16 step within max(0.1, 2 n_k) of
+# the plain f32 step, one noise with room for its spread over the leaves
+# (zamba2-7b's groups/m/conv_Bb sits at 1.53 n_k on an H100, where its f32
+# step through the kernels is within 2.3e-5 of the plain one).
+F32_TRAIN_BOUNDS = {"loss": 1e-5, "leaf": 1e-3}
+BF16_NOISE_CEILING = 0.3
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 4, 1024, 5
 
 
@@ -2712,12 +2757,22 @@ def train_flops(cfg, B, S):
     return 3 * B * S * (2 * n_mm + attn), n_mm
 
 
-def train_step_phase(cfg):
+def train_step_phase(cfg, want=None, prepare=standard_attention_scales,
+                     flops_fn=train_flops, B=TRAIN_B, S=TRAIN_S,
+                     f32_check=False):
     """14b. The 8-layer yi-6b train step (bf16 compute, f32 params and
     AdamW, remat, B x S tokens of `SyntheticTokens`) once through the
     kernels and once through the plain versions from the same params,
-    held to TRAIN_BOUNDS, with the kernels' launches counted; then
-    TRAIN_STEPS steps timed, and a profile of one more."""
+    held to TRAIN_BOUNDS, with the kernels' launches counted against
+    `want` (default: the transformer's two `flash_prefill` and one
+    `flash_prefill_bwd` a layer); then TRAIN_STEPS steps timed, and a
+    profile of one more. `prepare(params, cfg)` rescales the attention
+    (C1) and `flops_fn(cfg, B, S)` gives the step's model flops and
+    matmul params; phase 15 passes the SSM families' own. With
+    `f32_check` the same step also runs in f32 compute through the
+    kernels and through the plain versions, held to F32_TRAIN_BOUNDS, and
+    each bf16 leaf is held against its bf16 noise and the plain f32 step
+    (see F32_TRAIN_BOUNDS)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.api import build_model
@@ -2729,57 +2784,109 @@ def train_step_phase(cfg):
                                                  value_and_grad)
     model = build_model(cfg)
     params = init_params(cfg)
-    standard_attention_scales(params, cfg)
+    if prepare is not None:
+        prepare(params, cfg)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, B, S))
 
     def batch(i):
         return {k: torch.from_numpy(v).to("cuda")
                 for k, v in data.batch_at(i).items()}
     out = dict(config=cfg.name, params=n_params)
     b0 = batch(0)
+
+    def grads(plain, dtype=torch.bfloat16):
+        _, met, g = value_and_grad(
+            make_loss_fn(model, plain=plain, compute_dtype=dtype), params,
+            b0)
+        torch.cuda.synchronize()
+        return float(met["loss"]), g
+
+    def fracs(g, h):
+        """Each leaf's max |g - h| over h's max |value|, by name."""
+        return {key: float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                      1e-30)
+                for (key, a), b in zip(_named_leaves(g), tree_leaves(h))}
     torch.cuda.synchronize()
     reset_launch_counts()
-    tot_k, met_k, g_k = value_and_grad(make_loss_fn(model), params, b0)
-    torch.cuda.synchronize()
+    loss_k, g_k = grads(False)
     counts = launch_counts()
-    tot_p, met_p, g_p = value_and_grad(make_loss_fn(model, plain=True),
-                                       params, b0)
-    torch.cuda.synchronize()
-    want = {"flash_prefill": 2 * cfg.num_layers,
-            "flash_prefill_bwd": cfg.num_layers}
+    loss_p, g_p = grads(True)
+    want = want or {"flash_prefill": 2 * cfg.num_layers,
+                    "flash_prefill_bwd": cfg.num_layers}
     got = {k: counts[k] for k in want}
-    loss_k, loss_p = float(met_k["loss"]), float(met_p["loss"])
     gn_k, gn_p = float(global_norm(g_k)), float(global_norm(g_p))
-    worst, worst_leaf = 0.0, ""
-    for (key, a), b in zip(_named_leaves(g_k), tree_leaves(g_p)):
-        frac = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-        if frac > worst:
-            worst, worst_leaf = frac, key
-    del g_k, g_p
+    diff = fracs(g_k, g_p)
+    bound_of = dict.fromkeys(diff, TRAIN_BOUNDS["leaf"])
+    ok32 = True
+    if f32_check:
+        loss_pf, g_pf = grads(True, torch.float32)
+        noise = fracs(g_p, g_pf)
+        truth = fracs(g_k, g_pf)
+        del g_k, g_p
+        gc.collect()
+        loss_kf, g_kf = grads(False, torch.float32)
+        diff32 = fracs(g_kf, g_pf)
+        del g_kf, g_pf
+        leaf = TRAIN_BOUNDS["leaf"]
+        bound_of = {k: max(leaf, 2 * noise[k]) for k in diff}
+        worst32 = max(diff32, key=diff32.get)
+        worst_truth = max(truth, key=lambda k: truth[k] / bound_of[k])
+        noisiest = sorted(noise, key=noise.get, reverse=True)[:4]
+        ok32 = (abs(loss_kf - loss_pf)
+                <= F32_TRAIN_BOUNDS["loss"] * abs(loss_pf)
+                and diff32[worst32] <= F32_TRAIN_BOUNDS["leaf"]
+                and noise[noisiest[0]] <= BF16_NOISE_CEILING
+                and all(truth[k] <= bound_of[k] for k in truth))
+        out.update(f32_loss_kernels=loss_kf, f32_loss_plain=loss_pf,
+                   f32_worst_leaf=worst32,
+                   f32_worst_leaf_of_scale=diff32[worst32],
+                   f32_bounds=F32_TRAIN_BOUNDS, bf16_noise_of_scale=noise,
+                   bf16_noise_ceiling=BF16_NOISE_CEILING,
+                   bf16_kernels_vs_f32_of_scale=truth,
+                   bf16_kernels_vs_f32_worst_leaf=worst_truth,
+                   bf16_kernels_vs_f32_bound=bound_of[worst_truth])
+        log(f"train {cfg.name} f32 B={B} S={S}, one step, kernels vs plain "
+            f"versions: loss {loss_kf:.7f} vs {loss_pf:.7f} (bound "
+            f"{F32_TRAIN_BOUNDS['loss']} relative); worst leaf {worst32} "
+            f"{diff32[worst32]:.4e} of its max|grad| (bound "
+            f"{F32_TRAIN_BOUNDS['leaf']}); bf16 noise (plain bf16 vs plain "
+            f"f32) of the noisiest leaves "
+            f"{ {k: f'{noise[k]:.4e}' for k in noisiest} } (ceiling "
+            f"{BF16_NOISE_CEILING}); kernel bf16 vs plain f32, nearest its "
+            f"bound: {worst_truth} {truth[worst_truth]:.4e} (bound "
+            f"{bound_of[worst_truth]:.4e}, its noise "
+            f"{noise[worst_truth]:.4e})")
+    else:
+        del g_k, g_p
     gc.collect()
     torch.cuda.empty_cache()
+    worst_leaf = max(diff, key=lambda k: diff[k] / bound_of[k])
+    worst = diff[worst_leaf]
     ok = (abs(loss_k - loss_p) <= TRAIN_BOUNDS["loss"]
-          and worst <= TRAIN_BOUNDS["leaf"]
+          and all(diff[k] <= bound_of[k] for k in diff)
           and abs(gn_k - gn_p) <= TRAIN_BOUNDS["grad_norm"] * gn_p
-          and got == want and math.isfinite(loss_k))
+          and got == want and math.isfinite(loss_k) and ok32)
     out.update(loss_kernels=loss_k, loss_plain=loss_p, grad_norm_kernels=gn_k,
                grad_norm_plain=gn_p, worst_leaf_of_scale=worst,
-               worst_leaf=worst_leaf, launches=counts, expected=want,
-               bounds=TRAIN_BOUNDS)
-    log(f"train {cfg.name} bf16 B={TRAIN_B} S={TRAIN_S} ({n_params} "
+               worst_leaf=worst_leaf, worst_leaf_bound=bound_of[worst_leaf],
+               launches=counts, expected=want, bounds=TRAIN_BOUNDS)
+    log(f"train {cfg.name} bf16 B={B} S={S} ({n_params} "
         f"params), one step, kernels vs plain versions: loss {loss_k:.6f} "
         f"vs {loss_p:.6f} (bound {TRAIN_BOUNDS['loss']}); grad_norm "
         f"{gn_k:.6f} vs {gn_p:.6f} (bound {TRAIN_BOUNDS['grad_norm']} "
         f"relative); worst leaf {worst_leaf} {worst:.4e} of its max|grad| "
-        f"(bound {TRAIN_BOUNDS['leaf']}); launches {got} (expected {want})")
+        f"(bound {bound_of[worst_leaf]:.4e}"
+        + (f"; vs plain f32 {truth[worst_leaf]:.4e}, its noise "
+           f"{noise[worst_leaf]:.4e}" if f32_check else "")
+        + f"); launches {got} (expected {want})")
     if not ok:
         raise SystemExit("train: the kernel path's step is beyond its bounds "
                          "or off its kernels")
 
     step = make_train_step(model, AdamWConfig())
     opt = adamw_init(params)
-    flops, n_mm = train_flops(cfg, TRAIN_B, TRAIN_S)
+    flops, n_mm = flops_fn(cfg, B, S)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -2794,7 +2901,7 @@ def train_step_phase(cfg):
         dt = time.perf_counter() - t0
         c = launch_counts()
         steps.append(dict(step=i, loss=loss, grad_norm=float(m["grad_norm"]),
-                          s=dt, tokens_per_s=TRAIN_B * TRAIN_S / dt,
+                          s=dt, tokens_per_s=B * S / dt,
                           mfu=flops / dt / PEAK_FLOPS["bfloat16"],
                           launches={k: c[k] for k in want}))
         log(f"train {cfg.name} step {i}: loss {loss:.6f} grad_norm "
@@ -2807,14 +2914,14 @@ def train_step_phase(cfg):
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(s["s"] for s in steps[1:])
     out.update(steps=steps, median_step_s=med,
-               tokens_per_s=TRAIN_B * TRAIN_S / med,
+               tokens_per_s=B * S / med,
                mfu=flops / med / PEAK_FLOPS["bfloat16"], flops=flops,
                matmul_params=n_mm, peak_gib=peak)
     log(f"train {cfg.name}: median step (steps 1..{TRAIN_STEPS - 1}) "
         f"{med * 1e3:.2f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
-        f"{out['mfu']:.4f} of 989 TF/s (model flops {flops:.4e} a step = "
-        f"3 x B S (2 x {n_mm} matmul params + causal attention); remat's "
-        f"recompute not counted), peak {peak:.2f} GiB")
+        f"{out['mfu']:.4f} of 989 TF/s (model flops {flops:.4e} a step "
+        f"({flops_fn.__name__}; {n_mm} matmul params); remat's recompute "
+        f"not counted), peak {peak:.2f} GiB")
     k = TRAIN_STEPS
     out["profile"] = device_profile(
         lambda: step(params, opt, batch(k)), f"{cfg.name} train step")
@@ -2963,6 +3070,226 @@ def launcher_phase():
                          f"{second.stderr}")
     return dict(first_s=t1, second_s=t2, losses=losses,
                 second_stdout=second.stdout)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training the SSM families (mamba2-2.7b, zamba2-7b) through
+# ssd_scan and its backward kernel
+# ---------------------------------------------------------------------------
+
+# the backward kernel against `ssd_scan_bwd_ref` on the same inputs: each
+# gradient within this fraction of its largest |value|. f32: the same f32
+# function in another summation order (the kernel's decomposition against
+# autograd of `ssd_chunked` differs by ~1e-6 of scale on the CPU at S =
+# 512, chunk 256). bf16: both read the same bf16 inputs and compute in
+# f32; the kernel rounds dx, dB and dC to bf16 once, the plain version
+# rounds dx's two terms apart and adds them in bf16 (a few ulp of 2^-8);
+# ddt, dA, dD and dh0 are f32 on both sides. A wrong kernel gives O(1).
+SSD_BWD_BOUNDS = {"float32": 5e-5, "bfloat16": 2e-2}
+# (row name, b, S, nh, hd, G, N, chunk, h0 and dh_final given)
+SSD_BWD_SHAPES = (
+    ("mamba2_train", 2, 2048, 80, 64, 1, 128, 256, False),
+    ("zamba2_train", 2, 2048, 112, 64, 1, 64, 256, False),
+    ("small_g2_h0", 2, 200, 8, 32, 2, 32, 40, True))
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+SSM_TRAIN_B, SSM_TRAIN_S = 2, 2048
+# zamba2-7b's 81 layers (6.75 B parameters, ~108 GB of f32 params, grads
+# and moments) cut to 2 groups of 6 and a tail of 2: two applications of
+# the shared block, and the tail path
+ZAMBA_TRAIN_LAYERS = 14
+
+
+def ssd_bwd_flops_bytes(b, S, nh, hd, G, N, Q, es, given):
+    """Operations and bytes the gradient of one SSD scan needs, whatever
+    the kernel keeps. Per (batch, chunk, head): the chunk's state gradient
+    (2 Q hd N), the state terms of d xdt, dB and dC (3 x 2 Q hd N), and
+    over the P causal pairs dP = dy xdt^T and M^T dy (2 x 2 P hd). Per
+    (batch, chunk, group), as the forward counts C.B^T: the heads' masked
+    dCB summed first, then its two products with C and B (2 x 2 P N).
+    Bytes, each once: x, dy, B, C in and dx, dB, dC out in the storage
+    type; dt, A, D in and ddt, dA, dD out in f32; h0 and dh_final in and
+    dh0 out where `given`. The forward's kept scratch (each chunk's h_in,
+    a_cum, C.B^T) is this design's choice, not the function's, and is not
+    counted."""
+    P = Q * (Q + 1) // 2
+    nc = S // Q
+    flops = b * nc * (nh * (8 * Q * hd * N + 4 * P * hd) + G * 4 * P * N)
+    state = b * nh * hd * N * 4
+    nbytes = (3 * b * S * nh * hd * es + 4 * b * S * G * N * es
+              + 2 * b * S * nh * 4 + 4 * nh * 4
+              + (3 * state if given else 0))
+    return flops, nbytes
+
+
+def ssd_bwd_kernel_phase(dtypes):
+    """15a. `ssd_scan_bwd` against `ssd_scan_bwd_ref` at `SSD_BWD_SHAPES`
+    (the forward kernel's kept scratch as its input), f32 and bf16; two
+    identical calls must give identical bits. No PyTorch call computes the
+    scan's gradient, so there is no library yardstick."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    results = {}
+    for dtype in dtypes:
+        dn = dtype_name(dtype)
+        es = torch.empty((), dtype=dtype).element_size()
+        rows = {}
+        for i, (name, b, S, nh, hd, G, N, Q, given) in enumerate(
+                SSD_BWD_SHAPES):
+            gen = torch.Generator(device="cuda").manual_seed(500 + i)
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+            x = randn(b, S, nh, hd).to(dtype)
+            dt = torch.nn.functional.softplus(randn(b, S, nh)) * 0.1
+            A = -torch.exp(randn(nh))
+            B = randn(b, S, G, N).to(dtype)
+            C = randn(b, S, G, N).to(dtype)
+            D = randn(nh)
+            h0 = randn(b, nh, hd, N) if given else None
+            dh = randn(b, nh, hd, N) if given else None
+            dy = randn(b, S, nh, hd).to(dtype)
+            _, _, kept = ssd_scan(x, dt, A, B, C, D, chunk=Q, h0=h0,
+                                  keep_scratch=True)
+
+            def kern():
+                return ssd_scan_bwd(x, dt, A, B, C, D, kept, dy, dh,
+                                    chunk=Q, h0=h0)
+
+            def plain():
+                return ssd_scan_bwd_ref(x, dt, A, B, C, D, dy, dh, chunk=Q,
+                                        h0=h0)
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            errs, ok = {}, True
+            for g_name, g, w in zip(SSD_GRADS, got, want):
+                if w is None:
+                    continue
+                e = float((g.float() - w.float()).abs().max())
+                sc = float(w.float().abs().max())
+                errs[g_name] = (e, sc)
+                ok = ok and g.dtype == w.dtype and \
+                    e <= SSD_BWD_BOUNDS[dn] * sc
+            same = all(bool(torch.equal(u, v)) for u, v in zip(got, again)
+                       if u is not None)
+            del got, again, want
+            flops, nbytes = ssd_bwd_flops_bytes(b, S, nh, hd, G, N, Q, es,
+                                                given)
+            r = dict(
+                shape=(f"b={b} S={S} chunk={Q} nh={nh} hd={hd} G={G} N={N}"
+                       f"{' h0 dh_final' if given else ''}"),
+                max_abs_err=max(e for e, _ in errs.values()),
+                grad_err_of_scale={k: list(v) for k, v in errs.items()},
+                bound_of_scale=SSD_BWD_BOUNDS[dn], ok=ok and same,
+                repeat_identical=same, ms=time_ms(kern, iters=10),
+                plain_ms=time_ms(plain, iters=3, warmup=1),
+                library_ms=None, library="none", bytes=nbytes, flops=flops)
+            r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dn)
+            r["achieved"] = achieved(r)
+            rows[f"ssd_scan_bwd_{name}"] = r
+            shown = {k: (f"{e:.3e}", f"{sc:.3e}") for k, (e, sc) in
+                     errs.items()}
+            log(f"kernel ssd_scan_bwd {name} {dn} {r['shape']}: grads "
+                f"(max_abs_err, max|ref|) {shown} "
+                f"bound {SSD_BWD_BOUNDS[dn]} of max|ref| "
+                f"{'ok' if r['ok'] else 'MISMATCH'} kernel_ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} library_ms=none "
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"achieved={r['achieved']} repeat_identical={same}")
+            del x, dt, A, B, C, D, h0, dh, dy, kept
+            gc.collect()
+            torch.cuda.empty_cache()
+        results[dn] = rows
+        bad = [n for n, r in rows.items() if not r["ok"]]
+        if bad:
+            raise SystemExit(f"kernel phase: {bad} disagree with their plain "
+                             f"versions in {dn}")
+    return results
+
+
+def ssm_train_flops(cfg, B, S):
+    """Model flops of one train step of an SSM or a hybrid (MFU's
+    numerator): 3 x the forward (as `train_flops`; remat's recompute not
+    counted), the forward being 2 flops per matmul parameter per token
+    (each mamba layer's wz, wx, wB, wC, wdt and out_proj; the hybrid's
+    shared block once per application; the lm_head or the tied embedding)
+    plus the SSD scan's products in every layer (`ssd_flops_bytes`) and
+    the shared block's causal attention. The depthwise conv and the norms
+    are not products."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    nh = d_in // s.head_dim
+    gn = s.ngroups * s.state_dim
+    n_mm = cfg.num_layers * (d * (2 * d_in + 2 * gn + nh) + d_in * d) \
+        + d * cfg.vocab_size
+    scan = cfg.num_layers * ssd_flops_bytes(
+        B, S, nh, s.head_dim, s.ngroups, s.state_dim, min(s.chunk_size, S),
+        2)[0]
+    attn = 0.0
+    if cfg.hybrid_attn_every:
+        apps = cfg.num_layers // cfg.hybrid_attn_every
+        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        n_mm += apps * (d * (H + 2 * Hkv) * hd + H * hd * d
+                        + 3 * d * cfg.d_ff)
+        attn = apps * B * S * 4 * H * hd * (S + 1) / 2
+    return 3 * (2 * B * S * n_mm + scan + attn), n_mm
+
+
+def zamba_train_config():
+    """zamba2-7b at full width with its depth cut to ZAMBA_TRAIN_LAYERS."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2-7b"),
+                               num_layers=ZAMBA_TRAIN_LAYERS,
+                               name=f"zamba2-7b-{ZAMBA_TRAIN_LAYERS}l")
+
+
+def ssm_train_phase():
+    """15b-15c. mamba2-2.7b at full width and depth, then zamba2-7b at full
+    width and ZAMBA_TRAIN_LAYERS layers, through `train_step_phase`: one
+    step against the plain versions (TRAIN_BOUNDS) with each family's
+    launches, 5 timed steps and a profile."""
+    from repro_torch.configs import get_config
+    mcfg = get_config("mamba2-2.7b")
+    L = mcfg.num_layers
+    out = {}
+    out["mamba2"], path = train_step_phase(
+        mcfg, want={"ssd_scan": 2 * L, "ssd_scan_bwd": L}, prepare=None,
+        flops_fn=ssm_train_flops, B=SSM_TRAIN_B, S=SSM_TRAIN_S,
+        f32_check=True)
+    zcfg = zamba_train_config()
+    Lz, apps = zcfg.num_layers, zcfg.num_layers // zcfg.hybrid_attn_every
+    out["zamba2"], _ = train_step_phase(
+        zcfg, want={"ssd_scan": 2 * Lz, "ssd_scan_bwd": Lz,
+                    "flash_prefill": 2 * apps, "flash_prefill_bwd": apps},
+        prepare=lambda p, c: scale_attention(p["shared"]["attn"], c),
+        flops_fn=ssm_train_flops, B=SSM_TRAIN_B, S=SSM_TRAIN_S,
+        f32_check=True)
+    return out, path
+
+
+def ssm_launcher_phase():
+    """15d. `python -m repro_torch.launch.train --arch mamba2-2.7b-smoke
+    --steps 10 --remat` on the card: 10 finite losses, exit 0."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "mamba2-2.7b-smoke", "--steps", "10", "--remat"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                       cwd=ROOT, timeout=300)
+    secs = time.perf_counter() - t0
+    losses = [float(ln.split()[4]) for ln in r.stdout.splitlines()
+              if ln.startswith("[train] step ")]
+    log(f"train launcher mamba2-2.7b-smoke --remat on the card: "
+        f"{len(losses)} steps in {secs:.1f}s, loss "
+        f"{losses[0] if losses else float('nan'):.4f} -> "
+        f"{losses[-1] if losses else float('nan'):.4f}")
+    if r.returncode != 0 or len(losses) != 10 or \
+            not all(map(math.isfinite, losses)):
+        raise SystemExit(f"train: the launcher failed on mamba2-2.7b-smoke:"
+                         f"\n{r.stdout}{r.stderr}")
+    return dict(seconds=secs, losses=losses)
 
 
 # ---------------------------------------------------------------------------
@@ -3125,6 +3452,14 @@ def main() -> int:
     record["train_restart"] = restart_phase(train_config())
     record["train_launcher"] = launcher_phase()
 
+    # -- training the SSM families: mamba2-2.7b, zamba2-7b ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dn, rows in ssd_bwd_kernel_phase(dtypes).items():
+        record["kernels"][dn].update(rows)
+    record["train_ssm"], mamba_train_path = ssm_train_phase()
+    record["train_ssm_launcher"] = ssm_launcher_phase()
+
     serves = {"yi-6b": record["serve"], "mamba2-2.7b": record["serve_mamba"],
               "gemma3-1b": record["serve_gemma"],
               "launch.serve": record["launch"], "router": record["router"],
@@ -3132,7 +3467,7 @@ def main() -> int:
               "zamba2-7b": record["zamba2"]["serve"],
               "seamless-m4t-large-v2":
                   record["facade"]["seamless"]["float32"],
-              "train": train_path}
+              "train": train_path, "train-mamba2": mamba_train_path}
     rows = []
     for name, kern, path, row, *dt in SUMMARY:
         src, replaces = SOURCES[kern]

@@ -15,11 +15,12 @@ def _launchers():
     from .paged_decode.kernel import (paged_decode, paged_insert,
                                       paged_insert_decode)
     from .prefix_prefill.kernel import prefix_prefill
-    from .ssd_scan.kernel import ssd_scan
+    from .ssd_scan.kernel import ssd_scan, ssd_scan_bwd
     return {"paged_decode": paged_decode, "paged_insert": paged_insert,
             "paged_insert_decode": paged_insert_decode,
             "prefix_prefill": prefix_prefill, "flash_prefill": flash_prefill,
-            "flash_prefill_bwd": flash_prefill_bwd, "ssd_scan": ssd_scan}
+            "flash_prefill_bwd": flash_prefill_bwd, "ssd_scan": ssd_scan,
+            "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -2,7 +2,8 @@
 `repro/kernels/ssd_scan/ref.py`).
 
 `ssd_scan_ref` delegates to the model-side chunked implementation, itself
-held against the sequential recurrence. `ssd_scan_split_ref` computes the
+held against the sequential recurrence; `ssd_scan_bwd_ref`, its gradient,
+differentiates that implementation. `ssd_scan_split_ref` computes the
 same function in the three phases of the CUDA kernel (`csrc/ssd_scan.cu`):
 chunk states, state passing, chunk outputs by 64-row query tiles with
 C.B^T shared by the heads of a group; it is the kernel's algorithm on the
@@ -18,6 +19,29 @@ TILE = 64          # rows of a query tile and of a source tile
 
 def ssd_scan_ref(x, dt, A, B, C, D, *, chunk: int = 128, h0=None):
     return _ssd.ssd_chunked(x, dt, A, B, C, D, chunk, h0=h0)
+
+
+def ssd_scan_bwd_ref(x, dt, A, B, C, D, dy, dh_final=None, *,
+                     chunk: int = 128, h0=None):
+    """The gradient of `ssd_scan_ref` (the plain version of the
+    `ssd_scan_bwd` kernel): `torch.autograd.grad` through the model's
+    `ssd_chunked`, the function JAX's train step differentiates, for dy
+    (like y) and dh_final ((b, nh, hd, N) f32, or None for zeros). Returns
+    (dx, ddt, dA, dB, dC, dD, dh0), each in its input's dtype; dh0 None
+    where h0 is None."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C, D)]
+        h0_ = None if h0 is None else h0.detach().requires_grad_(True)
+        y, h = _ssd.ssd_chunked(*ins, chunk, h0=h0_)
+        outs, cots = [y], [dy.to(y.dtype)]
+        if dh_final is not None:
+            outs.append(h)
+            cots.append(dh_final.to(h.dtype))
+        leaves = ins + ([h0_] if h0_ is not None else [])
+        grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    return (*grads[:6], grads[6] if h0 is not None else None)
 
 
 def ssd_scan_sequential(x, dt, A, B, C, D, h0=None):

@@ -4,8 +4,9 @@
 `ssd_chunked` is the block decomposition (a masked within-chunk term plus
 a low-rank recurrence across chunks), written out in einsums: it is the
 plain version of the `ssd_scan` kernel. `mamba_apply` runs the prefill's
-scan through `ssd_scan_op`, i.e. the hand-written kernel on a CUDA tensor,
-where the JAX model runs the jnp `ssd_chunked`. `ssd_step` is the O(1)
+scan through `ssd_scan_op`, i.e. the hand-written kernel on a CUDA tensor
+(and, where autograd needs the gradient, its backward kernel), where the
+JAX model runs the jnp `ssd_chunked`. `ssd_step` is the O(1)
 decode recurrence, plain PyTorch as in JAX: the "KV cache" of an SSM is
 the constant-size state.
 """

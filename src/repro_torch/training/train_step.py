@@ -7,7 +7,9 @@ differentiates), so the gradients arrive in f32 on the f32 leaves. They
 come from `torch.autograd.grad` over the floating leaves, where JAX takes
 `jax.value_and_grad`. On the card every layer's attention runs the
 `flash_prefill` kernel forward and its `flash_prefill_bwd` kernel
-backward (`kernels/flash_prefill/ops.py::FlashPrefill`).
+backward (`kernels/flash_prefill/ops.py::FlashPrefill`), and every mamba
+layer's scan the `ssd_scan` kernel forward and its `ssd_scan_bwd` kernel
+backward (`kernels/ssd_scan/ops.py::SsdScan`).
 """
 from __future__ import annotations
 

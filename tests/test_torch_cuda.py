@@ -1090,9 +1090,11 @@ def test_flash_prefill_op_trains_through_the_kernels(cuda, dtype):
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
-    """The five ops whose CUDA kernel has no backward raise on a CUDA input
-    that requires grad (grad mode on) instead of returning a tensor
-    without a grad_fn; under no_grad they run."""
+    """The four ops whose CUDA kernel has no backward (the decode ops and
+    prefix_prefill) raise on a CUDA input that requires grad (grad mode
+    on) instead of returning a tensor without a grad_fn; under no_grad
+    they run. ssd_scan_op, whose backward kernel came later, now returns
+    a tensor with a grad_fn and its gradients."""
     rng = np.random.default_rng(6)
     dt = torch.float32
     B, H, Hkv, hd, page, pps = 2, 4, 2, 64, 16, 4
@@ -1116,11 +1118,152 @@ def test_kernels_without_backward_refuse_grad(cuda):
             _t(rng, cuda, dt, B, 16, Hkv, hd),
             _t(rng, cuda, dt, B, 16, Hkv, hd), kp, vp, table, lens),
     }
-    xs = _ssd_inputs(rng, cuda, dt, 2, 96, 4, 16, 4, 32)
-    xs[0].requires_grad_(True)
-    calls["ssd_scan_op"] = lambda: ssd_scan_op(*xs, chunk=32)
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no backward"):
             call()
         with torch.no_grad():
             call()
+    xs = _ssd_inputs(rng, cuda, dt, 2, 96, 4, 16, 4, 32)
+    xs[0].requires_grad_(True)
+    y, _ = ssd_scan_op(*xs, chunk=32)
+    assert y.grad_fn is not None
+    (dx,) = torch.autograd.grad(y, [xs[0]], torch.ones_like(y))
+    assert dx.shape == xs[0].shape and bool(torch.isfinite(dx).all())
+
+
+# ---------------------------------------------------------------------------
+# the gradient of the SSD scan: ssd_scan_bwd against ssd_scan_bwd_ref
+# ---------------------------------------------------------------------------
+
+# Each gradient within this fraction of its largest |value| of the plain
+# version's. f32: the same f32 function in another summation order
+# (~1e-6 of scale on the CPU, the kernel's decomposition against autograd
+# at S = 512, chunk 256). bf16: both read the same bf16 inputs and compute
+# in f32; the kernel rounds dx, dB and dC to bf16 once, the plain version
+# rounds dx's two terms apart and adds them in bf16 (a few ulp, 2^-8
+# each); a wrong kernel gives O(1) differences.
+SSD_BWD_BOUNDS = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def _ssd_grads_close(got, want, dtype):
+    torch.cuda.synchronize()
+    for name, g, w in zip(SSD_GRADS, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert err <= SSD_BWD_BOUNDS[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (b, S, nh, hd, G, N, chunk)
+    (2, 48, 8, 16, 1, 16, 16),               # the smoke configs' scan
+    (1, 512, 80, 64, 1, 128, 256),           # mamba2-2.7b: hd 64, N 128
+    (1, 512, 112, 64, 1, 64, 256),           # zamba2-7b: N 64
+    (2, 200, 8, 32, 2, 32, 40),              # G = 2, a chunk of 40 rows
+    (1, 96, 4, 8, 2, 16, 32),                # hd 8
+    (1, 192, 4, 128, 1, 80, 96),             # hd 128, N 80, ragged tiles
+    (1, 12, 2, 16, 1, 16, 1),                # chunks of one step
+])
+def test_ssd_scan_bwd_kernel(cuda, shape, dtype):
+    """dx, ddt, dA, dB, dC, dD and dh0 of the kernel against the plain
+    version on the same inputs, with h0 and dh_final given, from what the
+    forward kernel kept; one launch counted a call; a second call gives
+    identical bits (no atomics)."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    b, S, nh, hd, G, N, chunk = shape
+    rng = np.random.default_rng(S + nh)
+    x, dt, A, B, C, D = _ssd_inputs(rng, cuda, dtype, b, S, nh, hd, G, N)
+    A, D = A.float(), D.float()
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+    h0, dh = f32(b, nh, hd, N), f32(b, nh, hd, N)
+    dy = _t(rng, cuda, dtype, b, S, nh, hd)
+    _, _, kept = ssd_scan(x, dt, A, B, C, D, chunk=chunk, h0=h0,
+                          keep_scratch=True)
+    before = tk.launch_counts()["ssd_scan_bwd"]
+    got = ssd_scan_bwd(x, dt, A, B, C, D, kept, dy, dh, chunk=chunk, h0=h0)
+    again = ssd_scan_bwd(x, dt, A, B, C, D, kept, dy, dh, chunk=chunk,
+                         h0=h0)
+    assert tk.launch_counts()["ssd_scan_bwd"] == before + 2
+    want = ssd_scan_bwd_ref(x, dt, A, B, C, D, dy, dh, chunk=chunk, h0=h0)
+    _ssd_grads_close(got, want, dtype)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_ssd_scan_kernels_empty_input_launch_nothing(cuda):
+    """With S = 0 neither wrapper launches or counts: the forward's final
+    state is h0, the backward's dh0 is dh_final and dA, dD are zero."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+    rng = np.random.default_rng(3)
+    x, dt, A, B, C, D = _ssd_inputs(rng, cuda, torch.float32, 2, 0, 4, 16,
+                                    1, 16)
+    h0 = torch.randn(2, 4, 16, 16, device=cuda)
+    dh = torch.randn(2, 4, 16, 16, device=cuda)
+    before = tk.launch_counts()
+    y, h, kept = ssd_scan(x, dt, A, B, C, D, chunk=16, h0=h0,
+                          keep_scratch=True)
+    grads = ssd_scan_bwd(x, dt, A, B, C, D, kept, torch.empty_like(x), dh,
+                         chunk=16, h0=h0)
+    after = tk.launch_counts()
+    assert after["ssd_scan"] == before["ssd_scan"]
+    assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"]
+    assert y.shape == x.shape and torch.equal(h, h0)
+    assert torch.equal(grads[6], dh)
+    assert not grads[2].any() and not grads[5].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_op_trains_through_the_kernels(cuda, dtype):
+    """Under grad mode the op runs as SsdScan: the forward kernel once, the
+    backward kernel once, gradients in the inputs' dtypes (A and D in the
+    model's dtype, cast to f32 outside the Function) against autograd of
+    the plain path; dh_final None where the loss ignores h_final."""
+    rng = np.random.default_rng(20)
+    leaves = [t.requires_grad_(True) for t in
+              _ssd_inputs(rng, cuda, dtype, 2, 300, 8, 32, 2, 32)]
+    dy = _t(rng, cuda, dtype, 2, 300, 8, 32)
+    before = tk.launch_counts()
+    y, _ = ssd_scan_op(*leaves, chunk=100)
+    got = torch.autograd.grad(y, leaves, dy)
+    after = tk.launch_counts()
+    assert after["ssd_scan"] == before["ssd_scan"] + 1
+    assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    want = torch.autograd.grad(ssd_scan_op(*leaves, chunk=100,
+                                           plain=True)[0], leaves, dy)
+    _ssd_grads_close(got, want, dtype)
+
+
+def test_mamba2_smoke_train_step_matches_cpu(cuda):
+    """One f32 train step of mamba2-2.7b-smoke with remat (24 tokens, the
+    scan's tail padded) on the card, through the scan kernel and its
+    backward, against the same step on the CPU (plain versions): loss
+    within 1e-5 relative, every gradient leaf within 5e-5 of its largest
+    |grad|; launches 2 forward (one a remat recompute) and 1 backward a
+    layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    cfg = get_config("mamba2-2.7b-smoke")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticTokens(
+        DataConfig(cfg.vocab_size, 2, 24)).batch_at(0).items()}
+    loss_fn = make_loss_fn(model, compute_dtype=torch.float32)
+    before = tk.launch_counts()
+    got = value_and_grad(loss_fn, tree_map(lambda t: t.to(cuda), params),
+                         {k: v.to(cuda) for k, v in batch.items()})
+    after = tk.launch_counts()
+    assert after["ssd_scan"] - before["ssd_scan"] == 2 * cfg.num_layers
+    assert after["ssd_scan_bwd"] - before["ssd_scan_bwd"] == cfg.num_layers
+    want = value_and_grad(loss_fn, params, batch)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
+    for g, w in zip(tree_leaves(got[2]), tree_leaves(want[2])):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 5e-5 * scale

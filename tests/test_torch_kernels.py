@@ -32,6 +32,8 @@ from repro_torch.kernels.paged_decode.ref import (paged_decode_ref,
 from repro_torch.kernels.prefix_prefill import kernel as prefix_kernel
 from repro_torch.kernels.prefix_prefill.ops import prefix_prefill_op
 from repro_torch.kernels.prefix_prefill.ref import prefix_prefill_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 from repro_torch.models import attention as tx_attn
 
 # tests/test_kernels.py:16-17
@@ -334,12 +336,18 @@ def test_cuda_launchers_refuse_cpu_tensors_without_counting():
     with pytest.raises(ValueError):
         prefix_kernel.prefix_prefill(q4, q4[:, :2], q4[:, :2], pool, pool,
                                      tab, lens)
+    x, dt, nh = torch.zeros(1, 16, 2, 16), torch.zeros(1, 16, 2), 2
+    bc, a = torch.zeros(1, 16, 1, 16), torch.zeros(nh)
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_scan_bwd(x, dt, a, bc, bc, a, (), x, chunk=16)
     paged_decode_op(q, pool, pool, tab, lens)
     flash_prefill_op(q4, q4[:, :, :2], q4[:, :, :2])
+    ssd_scan_op(x, dt, a, bc, bc, a, chunk=16)
     assert tk.launch_counts() == {"paged_decode": 0, "paged_insert": 0,
                                   "paged_insert_decode": 0,
                                   "prefix_prefill": 0, "flash_prefill": 0,
-                                  "flash_prefill_bwd": 0, "ssd_scan": 0}
+                                  "flash_prefill_bwd": 0, "ssd_scan": 0,
+                                  "ssd_scan_bwd": 0}
     assert issubclass(KernelError, RuntimeError)
 
 
