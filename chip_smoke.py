@@ -164,6 +164,22 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    `python -m repro_torch.launch.train --arch mamba2-2.7b-smoke --remat`
    on the card for 10 steps.
 
+16. the sharding vocabulary and the dry-run tools: (a) `launch/dryrun.py::
+   lower_cell` at full width on the fake 256/512-rank meshes (host work,
+   run on the card's machine for its torch): yi-6b x train_4k,
+   prefill_32k and decode_32k on pod1, decode_32k on pod2,
+   moonshot-v1-16b-a3b x prefill_32k (the shard-local MoE dispatch),
+   mixtral-8x22b x prefill_32k (serve_2d) and mamba2-2.7b x long_500k,
+   each with its status, seconds, dot flops, collectives by kind and
+   per-rank peak; fails if a cell errs or its dot flops differ from JAX's
+   `jaxpr_costs` in `tests/torch_dryrun_jax_flops.json`. (b)
+   `launch/diagnose.py --serve-metrics` at full yi-6b width on the card
+   (two replicas sharing one f32 copy of the weights, JAX's 10-request
+   burst): the router's, each replica's and the fleet's dumps; fails
+   unless finished plus shed is 10, the metric names are those of the
+   yi-6b-smoke run on the CPU, and `flash_prefill` and `paged_decode`
+   launched.
+
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
 """
@@ -3314,6 +3330,99 @@ def ptxas_summary(build_log: Path) -> str:
             f"{len(spills)} spilling" + "".join(f"\n  {s}" for s in spills))
 
 
+# phase 16 (a): the dry-run's cells (arch, shape, multi_pod)
+DRYRUN_CELLS = (("yi-6b", "train_4k", False), ("yi-6b", "prefill_32k", False),
+                ("yi-6b", "decode_32k", False), ("yi-6b", "decode_32k", True),
+                ("moonshot-v1-16b-a3b", "prefill_32k", False),
+                ("mixtral-8x22b", "prefill_32k", False),
+                ("mamba2-2.7b", "long_500k", False))
+
+
+def dryrun_phase():
+    """Phase 16 (a): each cell of `DRYRUN_CELLS` through `lower_cell` on
+    the fake mesh; its dot flops against JAX's where the committed file
+    holds the cell."""
+    from repro_torch.launch.dryrun import lower_cell
+    jax_flops = json.loads((ROOT / "tests" / "torch_dryrun_jax_flops.json")
+                           .read_text())["dot_flops"]
+    out, bad = [], []
+    for arch, shape, mp in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = lower_cell(arch, shape, multi_pod=mp)
+        secs = time.perf_counter() - t0
+        rec.pop("collective_ops", None)
+        rec["wall_s"] = secs
+        flops = rec["cost_corrected"]["dot_flops"]
+        want = jax_flops.get(f"{arch}/{shape}")
+        coll = {k: f"{v / 1e9:.3f}GB"
+                for k, v in rec["collectives"]["by_kind"].items()}
+        log(f"dryrun {arch} x {shape} {'pod2' if mp else 'pod1'}: "
+            f"{rec['status']} in {secs:.1f}s, dot_flops {flops} (JAX "
+            f"{want if want is not None else 'not in the file'}), "
+            f"collectives {coll} ici "
+            f"{rec['collectives']['ici_bytes'] / 1e9:.3f}GB dcn "
+            f"{rec['collectives']['dcn_bytes'] / 1e9:.3f}GB, per-rank peak "
+            f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB (arguments "
+            f"{rec['memory']['argument_bytes'] / 2**30:.2f}), fallbacks "
+            f"{rec['fallbacks']}")
+        if rec["status"] != "ok" or (want is not None and flops != want):
+            bad.append(f"{arch}/{shape}")
+        out.append(rec)
+    if bad:
+        raise SystemExit(f"dryrun: {bad} failed or differ from JAX")
+    return out
+
+
+def serve_metrics_phase():
+    """Phase 16 (b): `diagnose --serve-metrics` at full yi-6b width on the
+    card against the yi-6b-smoke run's metric names on the CPU."""
+    import re
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.diagnose import serve_metrics
+
+    def parse(text):
+        return {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"^([a-zA-Z_]\w*) ([-0-9.e+infa]+)$", text, re.M)}
+    cpu_text = serve_metrics("yi-6b-smoke", device="cpu", echo=False)
+    cpu = parse(cpu_text)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    text = serve_metrics("yi-6b", device="cuda", echo=False)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    for line in text.splitlines():
+        if not line.startswith("#"):
+            log(f"metrics {line}")
+    got = parse(text)
+    fin, shed = (got.get(f"repro_requests_{k}", 0)   # a counter at 0 is
+                 for k in ("finished", "shed"))       # not exported
+    done = fin + shed
+
+    def names(m):
+        # a replica that served no request has no latency histograms, and
+        # which replica serves what depends on the clock: compare the
+        # names with the replica's number taken out
+        return {re.sub(r"replica\d+", "replicaN", k) for k in m}
+    # a counter is exported once it counts: one that counted on one side
+    # only (requests shed by the router, which depends on the clock) is
+    # zero on the other
+    counters = {re.sub(r"replica\d+", "replicaN", m) for m in re.findall(
+        r"^# TYPE (\S+) counter$", text + cpu_text, re.M)}
+    same = not ((names(got) ^ names(cpu)) - counters)
+    log(f"serve-metrics yi-6b x2 replicas on the card: {secs:.1f}s, "
+        f"finished {fin:.0f} + shed {shed:.0f} = {done:.0f} of 10; "
+        f"{len(got)} metrics ({len(cpu)} on the CPU), names equal to the "
+        f"CPU run's but for counters that counted on one side only {same} "
+        f"(only on the card: "
+        f"{sorted(names(got) - names(cpu))}, only on the CPU: "
+        f"{sorted(names(cpu) - names(got))}); launches {launches}")
+    if done != 10 or not same or \
+            not launches["flash_prefill"] or not launches["paged_decode"]:
+        raise SystemExit("serve-metrics: requests lost, metric names off, "
+                         "or an attention kernel never launched")
+    return {"seconds": secs, "metrics": got, "launches": launches}
+
+
 def init_params(cfg, dtype=None):
     """Random weights of `cfg` on the card, from seed 0, drawn in f32 and
     stored in `dtype` (default f32; a bf16 model is drawn a layer at a
@@ -3459,6 +3568,12 @@ def main() -> int:
         record["kernels"][dn].update(rows)
     record["train_ssm"], mamba_train_path = ssm_train_phase()
     record["train_ssm_launcher"] = ssm_launcher_phase()
+
+    # -- the sharding vocabulary: dry-run cells, serve metrics -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["dryrun"] = dryrun_phase()
+    record["serve_metrics"] = serve_metrics_phase()
 
     serves = {"yi-6b": record["serve"], "mamba2-2.7b": record["serve_mamba"],
               "gemma3-1b": record["serve_gemma"],

@@ -424,6 +424,7 @@ extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
                             int split_pages, int n_split, float scale,
                             float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || H == 0) return 0;
   if (!decode_shapes_ok(H, Hkv, pps, split_pages, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;

@@ -323,6 +323,7 @@ extern "C" int prefix_prefill(int dtype, int hd, const void* q,
                               int Hkv, int Sq, int page, int npp, float scale,
                               float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0 || H == 0) return 0;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     const auto args = make_args<float>(q, ks, vs, kp, vp, table, plens,

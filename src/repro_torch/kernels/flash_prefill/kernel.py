@@ -70,6 +70,12 @@ def flash_prefill(q, k, v, *, causal=True, window: int = 0, scale=None,
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("flash_prefill: f32/bf16 tensors of one dtype")
+    if q.numel() == 0 or Skv == 0:
+        # nothing to launch: no query row, or no key (a row with no key
+        # attends nothing: zeros, and the log-sum-exp of no score, -inf)
+        if lse is not None:
+            lse.fill_(float("-inf"))
+        return torch.zeros_like(q)
     hdp = padded_head_dim("flash_prefill", hd)
     if hdp != hd:
         return flash_prefill(
@@ -117,6 +123,10 @@ def flash_prefill_bwd(q, k, v, o, lse, do, *, causal=True, window: int = 0,
     if o.shape != q.shape or do.shape != q.shape or v.shape != k.shape:
         raise ValueError(f"{name}: o and do must be shaped like q, v like k")
     _check_lse(name, lse, q)
+    if q.numel() == 0 or k.numel() == 0:
+        # no query row or no key: every gradient is zero (the C entry
+        # launches nothing either)
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
     if H % Hkv:
         raise ValueError(f"{name}: H={H} is not a multiple of Hkv={Hkv}")
     hdp = padded_head_dim(name, hd)

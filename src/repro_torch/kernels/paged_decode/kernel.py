@@ -147,6 +147,8 @@ def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
     combine) count as one call of the op, as do the launches of a group
     above `DEC_GMAX` query heads, which runs in slices (`_by_groups`)."""
     _check_decode("paged_decode", q, k_pages, v_pages, block_table, lens)
+    if q.numel() == 0:
+        return torch.zeros_like(q)      # no query: nothing to launch
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     block_table, lens = block_table.contiguous(), lens.contiguous()
@@ -184,6 +186,8 @@ def paged_insert_decode(q, k_new, v_new, k_pages, v_pages, block_table,
         raise TypeError(f"{name}: new rows of f32 or the pools' "
                         f"{k_pages.dtype}, got {k_new.dtype}, "
                         f"{v_new.dtype}")
+    if q.numel() == 0:
+        return torch.zeros_like(q)      # no sequence: nothing to launch
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     block_table, lens = block_table.contiguous(), lens.contiguous()
     out = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,

@@ -34,6 +34,8 @@ def prefix_prefill(q, k_suf, v_suf, k_pages, v_pages, prefix_table,
     if dt not in DTYPE_CODES or any(t.dtype != dt for t in
                                     (k_suf, v_suf, k_pages, v_pages)):
         raise TypeError("prefix_prefill: f32/bf16 tensors of one dtype")
+    if q.numel() == 0:
+        return torch.zeros_like(q)      # no query row: nothing to launch
     hdp = padded_head_dim("prefix_prefill", hd)
     if hdp != hd:
         pad = [pad_head_dim(t, hdp) for t in (q, k_suf, v_suf, k_pages,

@@ -18,6 +18,7 @@ from typing import Any
 import torch
 
 from . import encdec, hybrid, mamba_lm, transformer
+from .common import split_boxes
 
 
 def _mod(cfg):
@@ -34,10 +35,23 @@ class Model:
     # ---- params ----------------------------------------------------
     def init(self, gen: torch.Generator, device=None, dtype=torch.float32):
         """Random params on `device` (default: the generator's), drawn in
-        f32 and stored in `dtype`."""
+        f32 and stored in `dtype`: a tree of plain tensors."""
+        return self.init_with_axes(gen, device, dtype)[0]
+
+    def init_with_axes(self, gen: torch.Generator, device=None,
+                       dtype=torch.float32):
+        """(params, logical axes) of the init (JAX `init_with_axes`)."""
         kw = {} if dtype == torch.float32 else {"dtype": dtype}
-        return _mod(self.cfg).init(gen, self.cfg,
-                                   device=device or gen.device, **kw)
+        return split_boxes(_mod(self.cfg).init(
+            gen, self.cfg, device=device or gen.device, **kw))
+
+    def param_axes(self, dtype=torch.float32):
+        """(shapes, axes): the params as `meta` tensors (shape and dtype,
+        nothing allocated or drawn; the port's `eval_shape` of the init)
+        and their logical axes."""
+        shapes, axes = self.init_with_axes(None, "meta")
+        return (shapes if dtype == torch.float32
+                else self.cast(shapes, dtype)), axes
 
     @staticmethod
     def cast(params, dtype, device=None):
@@ -105,6 +119,9 @@ class Model:
                 f"paged KV cache unsupported for {self.cfg.name}")
         return _mod(self.cfg).paged_cache_specs(
             self.cfg, batch, num_pages, page_size, dtype, max_len=max_len)
+
+    def cache_logical_axes(self):
+        return _mod(self.cfg).cache_logical_axes(self.cfg)
 
 
 def supports_paged(cfg) -> bool:

@@ -20,10 +20,9 @@ from typing import Any, Dict
 
 import torch
 
-from ..kernels.flash_prefill.ops import flash_prefill_op
-from .attention import slab_attend
+from . import sharded
 from .common import (TensorSpec, apply_norm, embed_lookup, layer_of,
-                     norm_params, param, remat_layer)
+                     norm_params, param, remat_layer, shard)
 from .moe import dense_ffn_apply, dense_ffn_params
 from .transformer import (_out_proj, _qkv, attn_decode, attn_full,
                           attn_params, slab_slots)
@@ -32,10 +31,12 @@ from .transformer import (_out_proj, _qkv, attn_decode, attn_full,
 def _xattn_params(gen, cfg, *, device, stack):
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kw = dict(device=device, stack=stack)
-    return {"wq": param(gen, (d, H, hd), **kw),
-            "wk": param(gen, (d, Hkv, hd), **kw),
-            "wv": param(gen, (d, Hkv, hd), **kw),
-            "wo": param(gen, (H, hd, d), **kw)}
+    return {"wq": param(gen, (d, H, hd), ("embed", "heads", None), **kw),
+            "wk": param(gen, (d, Hkv, hd), ("kv_embed", "kv_heads", None),
+                        **kw),
+            "wv": param(gen, (d, Hkv, hd), ("kv_embed", "kv_heads", None),
+                        **kw),
+            "wo": param(gen, (H, hd, d), ("heads", None, "embed"), **kw)}
 
 
 def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
@@ -54,13 +55,14 @@ def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
         p["ffn"] = dense_ffn_params(gen, d, cfg.d_ff, **kw)
         return p
     return {
-        "embed": param(gen, (cfg.vocab_size, d), device=device,
-                       scale=d ** -0.5),
+        "embed": param(gen, (cfg.vocab_size, d), ("vocab", "embed"),
+                       device=device, scale=d ** -0.5),
         "enc": block(cfg.encoder_layers, False),
         "enc_norm": norm_params(gen, d, cfg, device=device),
         "dec": block(cfg.num_layers, True),
         "final_norm": norm_params(gen, d, cfg, device=device),
-        "lm_head": param(gen, (d, cfg.vocab_size), device=device),
+        "lm_head": param(gen, (d, cfg.vocab_size), ("embed", "vocab"),
+                         device=device),
     }
 
 
@@ -73,8 +75,9 @@ def _proj(x, w):
 def _enc_layer(x, pl, cfg, positions, attn_blocks, plain):
     h = apply_norm(x, pl["ln1"], cfg)
     q, k, v = _qkv(pl["attn"], h, cfg, positions, cfg.rope_theta)
-    o = flash_prefill_op(q, k, v, causal=False, block_q=attn_blocks[0],
-                         block_kv=attn_blocks[1], plain=plain)
+    o = sharded.flash_prefill(q, k, v, causal=False,
+                              block_q=attn_blocks[0],
+                              block_kv=attn_blocks[1], plain=plain)
     x = x + _out_proj(o, pl["attn"]["wo"])
     h = apply_norm(x, pl["ln2"], cfg)
     return x + dense_ffn_apply(pl["ffn"], h, cfg)
@@ -83,7 +86,7 @@ def _enc_layer(x, pl, cfg, positions, attn_blocks, plain):
 def encode(params, src_embeds, cfg, attn_blocks=(512, 512),
            plain: bool = False, remat: bool = False):
     """src_embeds: (B, T, d) frame embeddings -> encoder output (B, T, d)."""
-    x = src_embeds
+    x = shard(src_embeds, "batch", None, "embed_act")
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None]
     layer = remat_layer(_enc_layer, remat)
@@ -102,8 +105,9 @@ def _dec_layer(x, pl, enc_out, cfg, positions, attn_blocks, plain):
     xa = pl["xattn"]
     q = _proj(h, xa["wq"])
     xk, xv = _proj(enc_out, xa["wk"]), _proj(enc_out, xa["wv"])
-    o = flash_prefill_op(q, xk, xv, causal=False, block_q=attn_blocks[0],
-                         block_kv=attn_blocks[1], plain=plain)
+    o = sharded.flash_prefill(q, xk, xv, causal=False,
+                              block_q=attn_blocks[0],
+                              block_kv=attn_blocks[1], plain=plain)
     x = x + _out_proj(o, xa["wo"])
     h = apply_norm(x, pl["ln2"], cfg)
     return x + dense_ffn_apply(pl["ffn"], h, cfg), kv, (xk, xv)
@@ -112,7 +116,8 @@ def _dec_layer(x, pl, enc_out, cfg, positions, attn_blocks, plain):
 def _decoder_forward(params, tgt_tokens, enc_out, cfg, attn_blocks,
                      return_cache=False, max_len=None, plain=False,
                      remat=False):
-    x = embed_lookup(params["embed"], tgt_tokens.long())
+    x = params["embed"][tgt_tokens.long()]
+    x = shard(x, "batch", None, "embed_act")
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ks, vs, xks, xvs = [], [], [], []
@@ -128,7 +133,7 @@ def _decoder_forward(params, tgt_tokens, enc_out, cfg, attn_blocks,
     x = apply_norm(x, params["final_norm"], cfg)
     if return_cache:
         x = x[:, -1:]          # last-position logits only at prefill
-    logits = x @ params["lm_head"]
+    logits = shard(x @ params["lm_head"], "batch", None, "vocab")
     cache = None
     if return_cache:
         k, v = torch.stack(ks), torch.stack(vs)
@@ -170,6 +175,7 @@ def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
     """tokens: (B,) int. Returns (logits, cache); the self-KV slabs and
     `pos` are updated in place and the same dict comes back."""
     x = embed_lookup(params["embed"], tokens.long())
+    x = shard(x, "batch", "embed_act")
     B = x.shape[0]
     pos = cache["pos"]
     slots = slab_slots(pos, cache["k"][0], False)
@@ -182,8 +188,8 @@ def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
                             cache["v"][l], pos, slots, plain=plain)
         h = apply_norm(x, pl["lnx"], cfg)
         xa = pl["xattn"]
-        o = slab_attend(_proj(h, xa["wq"]), cache["xk"][l], cache["xv"][l],
-                        full, plain=plain)
+        o = sharded.slab_attend(_proj(h, xa["wq"]), cache["xk"][l],
+                                cache["xv"][l], full, plain=plain)
         x = x + _out_proj(o, xa["wo"])
         h = apply_norm(x, pl["ln2"], cfg)
         x = x + dense_ffn_apply(pl["ffn"], h, cfg)
@@ -200,3 +206,9 @@ def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     xkv = TensorSpec((L, batch, src_len, Hkv, hd), dtype)
     return {"k": kv, "v": kv, "xk": xkv, "xv": xkv,
             "pos": TensorSpec((batch,), torch.int32)}
+
+
+def cache_logical_axes(cfg, batch: int = 0, max_len: int = 0):
+    """Logical axes matching cache_specs (same tree structure)."""
+    ax = ("layers", "kv_batch", "kv_seq", "kv_heads", None)
+    return {"k": ax, "v": ax, "xk": ax, "xv": ax, "pos": ("kv_batch",)}

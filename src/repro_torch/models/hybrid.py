@@ -19,8 +19,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from .common import (TensorSpec, apply_norm, embed_lookup, layer_of,
-                     norm_params, param, remat_layer)
+from .common import (Box, TensorSpec, apply_norm, embed_lookup, layer_of,
+                     norm_params, param, remat_layer, shard, tree_map)
 from .moe import dense_ffn_apply, dense_ffn_params
 from .ssd import mamba_apply, mamba_params, mamba_state_specs, mamba_step
 from .transformer import attn_decode, attn_full, attn_params, slab_slots
@@ -40,8 +40,9 @@ def _mamba_layers(gen, cfg, n, *, device):
 
 
 def _reshape(tree, lead):
-    return {k: _reshape(v, lead) if isinstance(v, dict)
-            else v.reshape(*lead, *v.shape[1:]) for k, v in tree.items()}
+    """Stacked layers -> (groups, layers, ...), axes ("groups",) + ..."""
+    return tree_map(lambda b: Box(b.value.reshape(*lead, *b.value.shape[1:]),
+                                  ("groups",) + b.axes), tree)
 
 
 def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
@@ -50,10 +51,11 @@ def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
     every, n_groups, tail = _plan(cfg)
     d = cfg.d_model
     p: Dict[str, Any] = {
-        "embed": param(gen, (cfg.vocab_size, d), device=device,
-                       scale=d ** -0.5),
+        "embed": param(gen, (cfg.vocab_size, d), ("vocab", "embed"),
+                       device=device, scale=d ** -0.5),
         "final_norm": norm_params(gen, d, cfg, device=device),
-        "lm_head": param(gen, (d, cfg.vocab_size), device=device),
+        "lm_head": param(gen, (d, cfg.vocab_size), ("embed", "vocab"),
+                         device=device),
         "groups": _reshape(_mamba_layers(gen, cfg, n_groups * every,
                                          device=device), (n_groups, every)),
         "shared": {
@@ -111,7 +113,8 @@ def forward(params, tokens, cfg, *, remat=False, attn_blocks=(512, 512),
     each mamba block and each shared block in the backward."""
     del frontend_embeds
     every, n_groups, tail = _plan(cfg)
-    x = embed_lookup(params["embed"], tokens.long())
+    x = params["embed"][tokens.long()]
+    x = shard(x, "batch", None, "embed_act")
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     g_states = [] if return_cache else None
@@ -133,7 +136,7 @@ def forward(params, tokens, cfg, *, remat=False, attn_blocks=(512, 512),
     x = apply_norm(x, params["final_norm"], cfg)
     if return_cache:
         x = x[:, -1:]          # last-position logits only at prefill
-    logits = x @ params["lm_head"]
+    logits = shard(x @ params["lm_head"], "batch", None, "vocab")
     cache = None
     if return_cache:
         target = max_len if max_len is not None else S
@@ -185,6 +188,7 @@ def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
     attends over its own slab (`transformer.attn_decode`)."""
     every, n_groups, tail = _plan(cfg)
     x = embed_lookup(params["embed"], tokens.long())
+    x = shard(x, "batch", "embed_act")
     pos = cache["pos"]
     ps = params["shared"]
     slots = slab_slots(pos, cache["k"][0], False)
@@ -226,4 +230,26 @@ def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
     if tail:
         out["tail_ssm"] = stk((tail,), ssm)
         out["tail_conv"] = {k: stk((tail,), s) for k, s in conv.items()}
+    return out
+
+
+def cache_logical_axes(cfg, batch: int = 0, max_len: int = 0):
+    """Logical axes matching cache_specs (same tree structure)."""
+    every, n_groups, tail = _plan(cfg)
+    conv = {"x": ("groups", "layers", "kv_batch", None, "ssm_inner"),
+            "B": ("groups", "layers", "kv_batch", None, "state"),
+            "C": ("groups", "layers", "kv_batch", None, "state")}
+    out = {
+        "ssm": ("groups", "layers", "kv_batch", "heads", None, None),
+        "conv": conv,
+        "k": ("groups", "kv_batch", "kv_seq", "kv_heads", None),
+        "v": ("groups", "kv_batch", "kv_seq", "kv_heads", None),
+        "pos": ("kv_batch",),
+    }
+    if tail:
+        tconv = {"x": ("layers", "kv_batch", None, "ssm_inner"),
+                 "B": ("layers", "kv_batch", None, "state"),
+                 "C": ("layers", "kv_batch", None, "state")}
+        out["tail_ssm"] = ("layers", "kv_batch", "heads", None, None)
+        out["tail_conv"] = tconv
     return out

@@ -14,7 +14,7 @@ from typing import Any, Dict
 import torch
 
 from .common import TensorSpec, apply_norm, embed_lookup, layer_of, \
-    norm_params, param, remat_layer
+    norm_params, param, remat_layer, shard
 from .ssd import mamba_apply, mamba_params, mamba_state_specs, mamba_step
 
 
@@ -23,8 +23,8 @@ def init(gen: torch.Generator, cfg, *, device) -> Dict[str, Any]:
     `gen` (a generator on that device)."""
     d, L = cfg.d_model, cfg.num_layers
     return {
-        "embed": param(gen, (cfg.vocab_size, d), device=device,
-                       scale=d ** -0.5),
+        "embed": param(gen, (cfg.vocab_size, d), ("vocab", "embed"),
+                       device=device, scale=d ** -0.5),
         "layers": {"ln": norm_params(gen, d, cfg, device=device, stack=L),
                    "m": mamba_params(gen, cfg, device=device, stack=L)},
         "final_norm": norm_params(gen, d, cfg, device=device),
@@ -47,7 +47,8 @@ def forward(params, tokens, cfg, *, remat=False, return_cache=False,
     (a constant-size state, no attention): the engine passes them to
     every family. `remat` recomputes each layer in the backward."""
     del max_len, attn_blocks, frontend_embeds
-    x = embed_lookup(params["embed"], tokens.long())
+    x = params["embed"][tokens.long()]
+    x = shard(x, "batch", None, "embed_act")
     ssm, conv = [], {"x": [], "B": [], "C": []}
     block = remat_layer(_block, remat)
     for l in range(cfg.num_layers):
@@ -60,6 +61,7 @@ def forward(params, tokens, cfg, *, remat=False, return_cache=False,
     if return_cache:
         x = x[:, -1:]          # last-position logits only at prefill
     logits = x @ params["embed"].T.to(x.dtype)          # tied
+    logits = shard(logits, "batch", None, "vocab")
     cache = None
     if return_cache:
         cache = {"ssm": torch.stack(ssm),
@@ -87,6 +89,7 @@ def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
     runs here, so `plain` changes nothing."""
     del plain
     x = embed_lookup(params["embed"], tokens.long())
+    x = shard(x, "batch", "embed_act")
     ssm, conv = cache["ssm"], cache["conv"]
     for l in range(cfg.num_layers):
         pl = layer_of(params["layers"], l)
@@ -114,3 +117,12 @@ def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
                  for k, s in conv.items()},
         "pos": TensorSpec((batch,), torch.int32),
     }
+
+
+def cache_logical_axes(cfg, batch: int = 0, max_len: int = 0):
+    """Logical axes matching cache_specs (same tree structure)."""
+    conv = {"x": ("layers", "kv_batch", None, "ssm_inner"),
+            "B": ("layers", "kv_batch", None, "state"),
+            "C": ("layers", "kv_batch", None, "state")}
+    return {"ssm": ("layers", "kv_batch", "heads", None, None),
+            "conv": conv, "pos": ("kv_batch",)}

@@ -4,7 +4,8 @@
 `ssd_chunked` is the block decomposition (a masked within-chunk term plus
 a low-rank recurrence across chunks), written out in einsums: it is the
 plain version of the `ssd_scan` kernel. `mamba_apply` runs the prefill's
-scan through `ssd_scan_op`, i.e. the hand-written kernel on a CUDA tensor
+scan through `ssd_scan_op` (by way of `sharded.ssd_scan`, which splits a
+DTensor scan into its shards), i.e. the hand-written kernel on a CUDA tensor
 (and, where autograd needs the gradient, its backward kernel), where the
 JAX model runs the jnp `ssd_chunked`. `ssd_step` is the O(1)
 decode recurrence, plain PyTorch as in JAX: the "KV cache" of an SSM is
@@ -18,8 +19,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_scan import ops as scan_ops
-from .common import TensorSpec, param, rmsnorm
+from . import sharded
+from .common import Box, TensorSpec, param, rmsnorm
 
 
 def _segsum(a):
@@ -133,31 +134,40 @@ def mamba_params(gen, cfg, *, device, stack: int = 0) -> Dict:
     nh = d_in // s.head_dim
     gn = s.ngroups * s.state_dim
     lead = (stack,) if stack else ()
-    u = torch.rand(lead + (nh,), generator=gen, device=device,
-                   dtype=torch.float32)
-    dt_init = torch.log(torch.expm1(torch.exp(
-        u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))))
-    a_log = torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
-                                   device=device) % 15 + 1.0)
+    h_axes = (("layers",) if stack else ()) + ("heads",)
+    if torch.device(device).type == "meta":
+        dt_init = torch.empty(lead + (nh,), device=device)
+        a_log = torch.empty(lead + (nh,), device=device)
+    else:
+        u = torch.rand(lead + (nh,), generator=gen, device=device,
+                       dtype=torch.float32)
+        dt_init = torch.log(torch.expm1(torch.exp(
+            u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))))
+        a_log = torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                       device=device) % 15 + 1.0)
+        a_log = a_log.expand(lead + (nh,)).clone()
     cw = 1.0 / s.conv_width ** 0.5
     kw = dict(device=device, stack=stack)
     return {
-        "wz": param(gen, (d, d_in), **kw),
-        "wx": param(gen, (d, d_in), **kw),
-        "wB": param(gen, (d, gn), **kw),
-        "wC": param(gen, (d, gn), **kw),
-        "wdt": param(gen, (d, nh), **kw),
-        "conv_x": param(gen, (s.conv_width, d_in), scale=cw, **kw),
-        "conv_xb": param(gen, (d_in,), init="zeros", **kw),
-        "conv_B": param(gen, (s.conv_width, gn), scale=cw, **kw),
-        "conv_Bb": param(gen, (gn,), init="zeros", **kw),
-        "conv_C": param(gen, (s.conv_width, gn), scale=cw, **kw),
-        "conv_Cb": param(gen, (gn,), init="zeros", **kw),
-        "A_log": a_log.expand(lead + (nh,)).clone(),
-        "D": param(gen, (nh,), init="ones", **kw),
-        "dt_bias": dt_init,
-        "norm_w": param(gen, (d_in,), init="zeros", **kw),
-        "out_proj": param(gen, (d_in, d), **kw),
+        "wz": param(gen, (d, d_in), ("embed", "ssm_inner"), **kw),
+        "wx": param(gen, (d, d_in), ("embed", "ssm_inner"), **kw),
+        "wB": param(gen, (d, gn), ("embed", "state"), **kw),
+        "wC": param(gen, (d, gn), ("embed", "state"), **kw),
+        "wdt": param(gen, (d, nh), ("embed", "heads"), **kw),
+        "conv_x": param(gen, (s.conv_width, d_in), (None, "ssm_inner"),
+                        scale=cw, **kw),
+        "conv_xb": param(gen, (d_in,), ("ssm_inner",), init="zeros", **kw),
+        "conv_B": param(gen, (s.conv_width, gn), (None, "state"), scale=cw,
+                        **kw),
+        "conv_Bb": param(gen, (gn,), ("state",), init="zeros", **kw),
+        "conv_C": param(gen, (s.conv_width, gn), (None, "state"), scale=cw,
+                        **kw),
+        "conv_Cb": param(gen, (gn,), ("state",), init="zeros", **kw),
+        "A_log": Box(a_log, h_axes),
+        "D": param(gen, (nh,), ("heads",), init="ones", **kw),
+        "dt_bias": Box(dt_init, h_axes),
+        "norm_w": param(gen, (d_in,), ("ssm_inner",), init="zeros", **kw),
+        "out_proj": param(gen, (d_in, d), ("ssm_inner", "embed"), **kw),
     }
 
 
@@ -209,8 +219,8 @@ def mamba_apply(p, x, cfg, h0=None, conv0=None, *, plain: bool = False):
         Bh = F.pad(Bh, (0, 0, 0, 0, 0, pad))
         Ch = F.pad(Ch, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-    y, h = scan_ops.ssd_scan_op(xh, dt, A, Bh, Ch, p["D"], chunk=chunk,
-                                h0=h0, plain=plain)
+    y, h = sharded.ssd_scan(xh, dt, A, Bh, Ch, p["D"], chunk=chunk, h0=h0,
+                            plain=plain)
     y = y[:, :S].reshape(Bsz, S, d_in)
     y = rmsnorm(y, p["norm_w"], cfg.norm_eps) * F.silu(z)
     return y @ p["out_proj"], (h, conv_state)

@@ -27,12 +27,13 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..kernels.flash_prefill.ops import flash_prefill_op
 from ..kernels.paged_decode.ops import paged_insert_decode_op, paged_insert_op
 from ..kernels.prefix_prefill.ops import prefix_prefill_op
+from . import sharded
 from .attention import slab_attend, slab_page, slab_pages, slab_table
 from .common import (TensorSpec, apply_norm, apply_rope, embed_lookup,
-                     layer_of, norm_params, param, remat_layer, rmsnorm)
+                     is_dtensor, layer_of, norm_params, param, remat_layer,
+                     rmsnorm, shard)
 from .moe import dense_ffn_apply, dense_ffn_params, moe_apply, moe_params
 
 LOCAL_ROPE_THETA = 10000.0  # gemma3 local layers
@@ -88,14 +89,14 @@ def attn_params(gen, cfg, *, device, stack, dtype=torch.float32):
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kw = dict(device=device, stack=stack, dtype=dtype)
     p = {
-        "wq": param(gen, (d, H, hd), **kw),
-        "wk": param(gen, (d, Hkv, hd), **kw),
-        "wv": param(gen, (d, Hkv, hd), **kw),
-        "wo": param(gen, (H, hd, d), **kw),
+        "wq": param(gen, (d, H, hd), ("embed", "heads", None), **kw),
+        "wk": param(gen, (d, Hkv, hd), ("kv_embed", "kv_heads", None), **kw),
+        "wv": param(gen, (d, Hkv, hd), ("kv_embed", "kv_heads", None), **kw),
+        "wo": param(gen, (H, hd, d), ("heads", None, "embed"), **kw),
     }
     if cfg.qk_norm:
-        p["q_norm"] = param(gen, (hd,), init="zeros", **kw)
-        p["k_norm"] = param(gen, (hd,), init="zeros", **kw)
+        p["q_norm"] = param(gen, (hd,), (None,), init="zeros", **kw)
+        p["k_norm"] = param(gen, (hd,), (None,), init="zeros", **kw)
     return p
 
 
@@ -120,15 +121,18 @@ def init(gen: torch.Generator, cfg, *, device,
          dtype=torch.float32) -> Dict[str, Any]:
     """Random params at the JAX init scales, drawn in f32 on `device` from
     `gen` (a generator on that device) and stored in `dtype` (a stacked
-    leaf a layer at a time, `common.param`)."""
+    leaf a layer at a time, `common.param`). A tree of `Box` leaves with
+    JAX's logical axes."""
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
     p: Dict[str, Any] = {
-        "embed": param(gen, (cfg.vocab_size, d), scale=d ** -0.5, **kw),
+        "embed": param(gen, (cfg.vocab_size, d), ("vocab", "embed"),
+                       scale=d ** -0.5, **kw),
         "final_norm": norm_params(gen, d, cfg, **kw),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = param(gen, (d, cfg.vocab_size), **kw)
+        p["lm_head"] = param(gen, (d, cfg.vocab_size), ("embed", "vocab"),
+                             **kw)
     for i, seg in enumerate(layer_plan(cfg)):
         p[f"seg{i}"] = layer_params(gen, cfg, seg.kind, stack=seg.n, **kw)
     return p
@@ -186,6 +190,8 @@ def attn_full(p, x, cfg, kind, positions, attn_blocks=(512, 512),
     KV."""
     window = cfg.sliding_window if _is_windowed(kind, cfg) else 0
     q, k, v = _qkv(p, x, cfg, positions, _rope_theta(kind, cfg))
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
     if prefix is not None:
         assert paged_prefix is None
         paged_prefix = dense_prefix_pages(prefix[0].to(k.dtype),
@@ -197,9 +203,10 @@ def attn_full(p, x, cfg, kind, positions, attn_blocks=(512, 512),
                               block_q=attn_blocks[0], block_kv=attn_blocks[1],
                               softcap=cfg.attn_logit_softcap, plain=plain)
     else:
-        o = flash_prefill_op(q, k, v, causal=True, window=window,
-                             block_q=attn_blocks[0], block_kv=attn_blocks[1],
-                             softcap=cfg.attn_logit_softcap, plain=plain)
+        o = sharded.flash_prefill(q, k, v, causal=True, window=window,
+                                  block_q=attn_blocks[0],
+                                  block_kv=attn_blocks[1],
+                                  softcap=cfg.attn_logit_softcap, plain=plain)
     return _out_proj(o, p["wo"]), (k, v)
 
 
@@ -214,7 +221,7 @@ def slab_slots(pos, k_cache, ring: bool):
     every layer of a segment, so `decode_step` computes it once."""
     B, smax = k_cache.shape[:2]
     lens = torch.clamp(pos + 1, max=smax)
-    if not ring:
+    if not ring or is_dtensor(k_cache):
         return lens, None, None
     page = slab_page(smax)
     slot = pos % smax
@@ -238,6 +245,13 @@ def attn_decode(p, x, cfg, kind, k_cache, v_cache, pos, slots,
     q, k, v = _qkv(p, x[:, None], cfg, pos[:, None], _rope_theta(kind, cfg))
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
     lens, pidx, off = slots
+    if is_dtensor(k_cache):
+        smax = k_cache.shape[1]
+        slot = pos % smax if _is_windowed(kind, cfg) else lens - 1
+        o = sharded.decode_attend(q, k_cache, v_cache, lens, slot=slot,
+                                  k_new=k, v_new=v,
+                                  softcap=cfg.attn_logit_softcap, plain=plain)
+        return _out_proj(o, p["wo"])
     kp, vp, table = slab_pages(k_cache, v_cache)
     if _is_windowed(kind, cfg):
         paged_insert_op(kp, vp, k, v, pidx, off, plain=plain)
@@ -264,7 +278,7 @@ def _ffn(pl, x, cfg, kind):
 
 def embed_tokens(params, tokens, cfg, frontend_embeds=None):
     """Token embeddings; a VLM's frontend embeddings (B, P, d) go first."""
-    x = embed_lookup(params["embed"], tokens.long())
+    x = params["embed"][tokens.long()]   # vocab-sharded gather
     if cfg.embedding_scale:
         x = x * (cfg.d_model ** 0.5)
     if frontend_embeds is not None:
@@ -281,7 +295,7 @@ def _layer_body(x, pl, cfg, kind, positions, attn_blocks, prefix=None,
     x = x + a
     h = apply_norm(x, pl["ln2"], cfg)
     f, aux = _ffn(pl, h, cfg, kind)
-    return x + f, kv, aux
+    return shard(x + f, "batch", None, "embed_act"), kv, aux
 
 
 def forward(params, tokens, cfg, *, frontend_embeds=None, remat=False,
@@ -310,6 +324,7 @@ def forward(params, tokens, cfg, *, frontend_embeds=None, remat=False,
     `last_pos` picks which position's logits to return with
     `return_cache` (default: the last one)."""
     x = embed_tokens(params, tokens, cfg, frontend_embeds)
+    x = shard(x, "batch", None, "embed_act")
     B, S, _ = x.shape
     dev = x.device
     positions = (int(pos_offset)
@@ -387,7 +402,10 @@ def prefill(params, tokens, cfg, *, frontend_embeds=None,
 
 def unembed(params, x, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ w
+    logits = x @ w
+    # arity-aware constraint: decode logits are (B, V), train/prefill (B,S,V)
+    ax = ("batch", None, "vocab") if logits.ndim == 3 else ("batch", "vocab")
+    return shard(logits, *ax)
 
 
 def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
@@ -402,6 +420,7 @@ def decode_step(params, cache, tokens, cfg, *, plain: bool = False):
     x = embed_lookup(params["embed"], tokens.long())
     if cfg.embedding_scale:
         x = x * (cfg.d_model ** 0.5)
+    x = shard(x, "batch", "embed_act")
     pos = cache["pos"]
     for i, seg in enumerate(layer_plan(cfg)):
         kc, vc = cache[f"seg{i}"]["k"], cache[f"seg{i}"]["v"]
@@ -435,6 +454,7 @@ def decode_step_paged(params, cache, tokens, cfg, *, plain: bool = False):
     x = embed_lookup(params["embed"], tokens.long())
     if cfg.embedding_scale:
         x = x * (cfg.d_model ** 0.5)
+    x = shard(x, "batch", "embed_act")
     pos = cache["pos"]
     table = cache["block_tables"]
     max_pps = table.shape[1]
@@ -496,4 +516,14 @@ def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
         out[f"seg{i}"] = {"k": TensorSpec(shp, dtype),
                           "v": TensorSpec(shp, dtype)}
     out["pos"] = TensorSpec((batch,), torch.int32)
+    return out
+
+
+def cache_logical_axes(cfg, batch: int = 0, max_len: int = 0):
+    """Logical axes matching cache_specs (same tree structure)."""
+    out: Dict[str, Any] = {}
+    for i, _seg in enumerate(layer_plan(cfg)):
+        ax = ("layers", "kv_batch", "kv_seq", "kv_heads", None)
+        out[f"seg{i}"] = {"k": ax, "v": ax}
+    out["pos"] = ("kv_batch",)
     return out

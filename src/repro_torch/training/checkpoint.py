@@ -7,8 +7,10 @@ leaf is one file `{tree}__{key}.zst` of its raw bytes, zstd-compressed
 "bfloat16", read back through an int16 view (no `ml_dtypes` needed).
 A checkpoint either package writes restores in the other.
 
-JAX's `shardings`/`opt_shardings` place the leaves on a mesh (ROADMAP
-A15); the port runs on one device and refuses them.
+`save` gathers a sharded leaf (a DTensor) whole, as JAX's `device_get`
+does. JAX's `shardings`/`opt_shardings` place restored leaves on a mesh;
+the port's restore refuses them (`launch/train.py --mesh pod1|pod2`
+does not resume).
 """
 from __future__ import annotations
 
@@ -104,6 +106,8 @@ def _unflatten(flat: Dict[str, Any], like) -> Any:
 
 def _to_bytes(leaf) -> Tuple[bytes, list, str]:
     """A leaf's raw bytes, shape and numpy dtype name."""
+    if hasattr(leaf, "full_tensor"):            # a DTensor: gather it
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().tobytes(), list(t.shape), \
@@ -162,8 +166,8 @@ def restore(path: str, like_params, like_opt=None, shardings=None,
     the CPU. Returns (step, params, opt_state, extra)."""
     if shardings is not None or opt_shardings is not None:
         raise NotImplementedError(
-            "restore: shardings place leaves on a mesh (ROADMAP A15); the "
-            "port runs on one device")
+            "restore: placing restored leaves on a mesh (JAX's shardings, "
+            "ROADMAP A15) is not ported; restore on one device")
     with open(os.path.join(path, "index.msgpack"), "rb") as f:
         index = _unpack_index(f.read())
     dctx = _decompressor(index.get("codec", "zstd"))

@@ -175,7 +175,9 @@ def test_launcher_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
 
 
 def test_launcher_refuses_production_meshes_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A15"):
+    # a production mesh needs a process group of its 256 ranks (as JAX's
+    # needs 256 devices); with none initialized the launcher refuses it
+    with pytest.raises(RuntimeError, match="process group"):
         launch_train.run("yi-6b-smoke", 1, 2, 8, None, 0, mesh_kind="pod1",
                          device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

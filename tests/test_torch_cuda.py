@@ -1267,3 +1267,129 @@ def test_mamba2_smoke_train_step_matches_cpu(cuda):
     for g, w in zip(tree_leaves(got[2]), tree_leaves(want[2])):
         scale = float(w.abs().max())
         assert float((g.cpu() - w).abs().max()) <= 5e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernels_empty_input_launch_nothing(cuda, dtype):
+    """Zero-size batches, query rows and keys through the five attention
+    wrappers: correctly shaped outputs (zeros where the function is zero,
+    empty where the output is), no launch and no counter moved."""
+    from repro_torch.kernels.flash_prefill.kernel import (flash_prefill,
+                                                          flash_prefill_bwd)
+    from repro_torch.kernels.paged_decode.kernel import (paged_decode,
+                                                         paged_insert_decode)
+    from repro_torch.kernels.prefix_prefill.kernel import prefix_prefill
+    rng = np.random.default_rng(21)
+    H, Hkv, hd, page, npg = 4, 2, 64, 16, 6
+
+    def t(*shape):
+        return _t(rng, cuda, dtype, *shape)
+
+    before = tk.launch_counts()
+    # flash_prefill forward: no batch, no query row, no key
+    for B, Sq, Skv in ((0, 32, 32), (2, 0, 32), (2, 32, 0)):
+        q, k, v = t(B, H, Sq, hd), t(B, Hkv, Skv, hd), t(B, Hkv, Skv, hd)
+        lse = torch.zeros(B, H, Sq, device=cuda)
+        o = flash_prefill(q, k, v, causal=Sq == Skv, lse=lse)
+        assert o.shape == q.shape and o.dtype == dtype and not o.any()
+        assert (lse == float("-inf")).all()
+        # backward: dq zero with no key, dk/dv zero with no query row
+        do, lse_b = t(B, H, Sq, hd), torch.zeros(B, H, Sq, device=cuda)
+        grads = flash_prefill_bwd(q, k, v, o, lse_b, do, causal=False)
+        for g, like in zip(grads, (q, k, v)):
+            assert g.shape == like.shape and g.dtype == dtype
+            assert not g.any()
+    # prefix_prefill: no batch, no query row
+    kp, vp = t(npg, page, Hkv, hd), t(npg, page, Hkv, hd)
+    for B, Sq in ((0, 8), (2, 0)):
+        q, ks, vs = t(B, H, Sq, hd), t(B, Hkv, Sq, hd), t(B, Hkv, Sq, hd)
+        table = torch.zeros(B, 2, dtype=torch.int32, device=cuda)
+        plens = torch.zeros(B, dtype=torch.int32, device=cuda)
+        o = prefix_prefill(q, ks, vs, kp, vp, table, plens)
+        assert o.shape == q.shape and o.numel() == 0
+    # paged_decode and the fused insert + decode: no sequence
+    q, kn, vn = t(0, H, hd), t(0, Hkv, hd), t(0, Hkv, hd)
+    table = torch.zeros(0, 2, dtype=torch.int32, device=cuda)
+    lens = torch.zeros(0, dtype=torch.int32, device=cuda)
+    k0, v0 = kp.clone(), vp.clone()
+    assert paged_decode(q, kp, vp, table, lens).shape == (0, H, hd)
+    assert paged_insert_decode(q, kn, vn, kp, vp, table,
+                               lens).shape == (0, H, hd)
+    assert torch.equal(kp, k0) and torch.equal(vp, v0)
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == before
+
+
+def test_sharded_cores_launch_the_kernels_on_each_shard(cuda, tmp_path):
+    """On a one-rank (1, 1) mesh of the card (NCCL), the DTensor cores of
+    `models/sharded.py` run the kernels on each rank's shard: the decode
+    writes its new rows with `paged_insert` and attends with
+    `paged_decode`, prefill attention runs `flash_prefill` and the scan
+    `ssd_scan`, each once, and each equals its plain version."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.partitioning import make_rules
+    from repro_torch.models import sharded
+    from repro_torch.models.attention import slab_attend
+    from repro_torch.models.common import sharding_ctx
+    rng = np.random.default_rng(22)
+    f32 = torch.float32
+
+    def t(*shape):
+        return _t(rng, cuda, f32, *shape)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+
+        def dt(x, rules=None, axes=None):
+            pl = rules.placements(axes, x.shape) if axes else \
+                [Replicate()] * 2
+            return distribute_tensor(x, mesh.device_mesh, pl)
+
+        # the decode: the new row at lens - 1, then attention
+        rules = make_rules(mesh, "serve")
+        B, Smax, H, Hkv, hd = 2, 64, 8, 2, 64
+        q, kc, vc = t(B, H, hd), t(B, Smax, Hkv, hd), t(B, Smax, Hkv, hd)
+        kn, vn = t(B, Hkv, hd), t(B, Hkv, hd)
+        lens = torch.tensor([17, 64], dtype=torch.int32, device=cuda)
+        slot = lens - 1
+        kw_c, vw_c = kc.clone(), vc.clone()
+        kw_c[torch.arange(B), slot.long()] = kn
+        vw_c[torch.arange(B), slot.long()] = vn
+        want = slab_attend(q, kw_c, vw_c, lens, plain=True)
+        cax = ("kv_batch", "kv_seq", "kv_heads", None)
+        kd, vd = dt(kc, rules, cax), dt(vc, rules, cax)
+        before = tk.launch_counts()
+        with sharding_ctx(rules), implicit_replication():
+            o = sharded.decode_attend(dt(q), kd, vd, dt(lens), slot=dt(slot),
+                                      k_new=dt(kn), v_new=dt(vn))
+        counts = tk.launch_counts()
+        _close(o.to_local(), want, f32)
+        _close(kd.to_local(), kw_c, f32)
+        _close(vd.to_local(), vw_c, f32)
+        assert counts["paged_insert"] - before["paged_insert"] == 1
+        assert counts["paged_decode"] - before["paged_decode"] == 1
+        # prefill attention and the scan
+        rules = make_rules(mesh, "train")
+        qf, kf, vf = t(2, 128, H, hd), t(2, 128, Hkv, hd), t(2, 128, Hkv, hd)
+        xs = (t(2, 128, 4, 32), t(2, 128, 4).abs() * 0.1,
+              -t(4).abs() - 0.5, t(2, 128, 1, 16), t(2, 128, 1, 16), t(4))
+        before = tk.launch_counts()
+        with sharding_ctx(rules), implicit_replication():
+            of = sharded.flash_prefill(dt(qf), dt(kf), dt(vf))
+            y, h = sharded.ssd_scan(*(dt(a) for a in xs), chunk=64)
+        counts = tk.launch_counts()
+        _close(of.to_local(), flash_prefill_op(qf, kf, vf, plain=True), f32)
+        ry, rh = ssd_scan_op(*xs, chunk=64, plain=True)
+        np.testing.assert_allclose(y.to_local().cpu().numpy(),
+                                   ry.cpu().numpy(), atol=3e-4, rtol=3e-4)
+        np.testing.assert_allclose(h.to_local().cpu().numpy(),
+                                   rh.cpu().numpy(), atol=3e-4, rtol=3e-4)
+        assert counts["flash_prefill"] - before["flash_prefill"] == 1
+        assert counts["ssd_scan"] - before["ssd_scan"] == 1
+    finally:
+        dist.destroy_process_group()

@@ -16,6 +16,7 @@ from repro.kernels.ssd_scan.ref import (ssd_scan_ref as jx_scan_ref,
                                         ssd_scan_sequential as jx_scan_seq)
 from repro.models import ssd as jx_ssd
 from repro.models.common import keygen, split_boxes
+from repro_torch.models.common import split_boxes as tx_split_boxes
 from repro_torch import kernels as tk
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssd_scan import kernel as scan_kernel
@@ -205,8 +206,8 @@ def test_mamba_params_layout_and_deterministic_leaves(block):
     deterministic vector; dt_bias is the inverse softplus of a draw in
     [0.001, 0.1]."""
     jp, _ = block
-    tp = tx_ssd.mamba_params(torch.Generator().manual_seed(0), CFG,
-                             device="cpu")
+    tp, _ = tx_split_boxes(tx_ssd.mamba_params(
+        torch.Generator().manual_seed(0), CFG, device="cpu"))
     assert jp.keys() == tp.keys()
     for k in jp:
         assert tuple(tp[k].shape) == jp[k].shape, k
@@ -214,7 +215,7 @@ def test_mamba_params_layout_and_deterministic_leaves(block):
                                rtol=1e-6)             # log: 1 ulp apart
     dt = torch.nn.functional.softplus(tp["dt_bias"])
     assert float(dt.min()) >= 0.001 - 1e-6 and float(dt.max()) <= 0.1 + 1e-6
-    stacked = tx_ssd.mamba_params(torch.Generator().manual_seed(0), CFG,
-                                  device="cpu", stack=3)
+    stacked, _ = tx_split_boxes(tx_ssd.mamba_params(
+        torch.Generator().manual_seed(0), CFG, device="cpu", stack=3))
     assert tuple(stacked["wx"].shape) == (3,) + jp["wx"].shape
     assert tuple(stacked["A_log"].shape) == (3,) + jp["A_log"].shape
