@@ -133,8 +133,9 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    the plain LSE (`LSE_TOL`), f32 and bf16, at yi-6b's training shape
    (B=4, S=1024) and at gemma3-1b's, seamless-m4t-large-v2's encoder and
    cross-attention and zamba2-7b's (hd 112) attention, timed against
-   their plain versions and SDPA's backward; (b) yi-6b at full width cut
-   to 8 layers (`train_config`), bf16 compute, f32 params and AdamW,
+   their plain versions and SDPA's backward, each line with the route and
+   tiles the backward takes there (`bwd_warpgroups`); (b) yi-6b at full
+   width cut to 8 layers (`train_config`), bf16 compute, f32 params and AdamW,
    remat, B=4 x S=1024 of `SyntheticTokens`, attention projections at
    standard scales: one step's loss, grad_norm and every gradient leaf
    through the kernels against the plain versions (`TRAIN_BOUNDS`), with
@@ -158,8 +159,9 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    (`TRAIN_BOUNDS`), with `ssd_scan` 128 and `ssd_scan_bwd` 64 launches a
    step, then 5 timed steps (MFU from `ssm_train_flops`) and a profile;
    (c) the same for zamba2-7b at full width cut to 14 layers (2 groups of
-   6 and a tail of 2; the shared attention at standard scales):
-   `ssd_scan` 28, `ssd_scan_bwd` 14, `flash_prefill` 4 and
+   6 and a tail of 2; the shared attention at standard scales; remat
+   as JAX's, each group one checkpoint over its blocks' own, the tail
+   unrematted): `ssd_scan` 38, `ssd_scan_bwd` 14, `flash_prefill` 4 and
    `flash_prefill_bwd` 2 launches a step; (d) the launcher
    `python -m repro_torch.launch.train --arch mamba2-2.7b-smoke --remat`
    on the card for 10 steps.
@@ -169,7 +171,8 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    run on the card's machine for its torch): yi-6b x train_4k,
    prefill_32k and decode_32k on pod1, decode_32k on pod2,
    moonshot-v1-16b-a3b x prefill_32k (the shard-local MoE dispatch),
-   mixtral-8x22b x prefill_32k (serve_2d) and mamba2-2.7b x long_500k,
+   mixtral-8x22b x prefill_32k (serve_2d), mamba2-2.7b x long_500k, and
+   zamba2-7b and seamless-m4t-large-v2 x train_4k (the remat structure),
    each with its status, seconds, dot flops, collectives by kind and
    per-rank peak; fails if a cell errs or its dot flops differ from JAX's
    `jaxpr_costs` in `tests/torch_dryrun_jax_flops.json`. (b)
@@ -178,7 +181,10 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    burst): the router's, each replica's and the fleet's dumps; fails
    unless finished plus shed is 10, the metric names are those of the
    yi-6b-smoke run on the CPU, and `flash_prefill` and `paged_decode`
-   launched.
+   launched. (c) a decode cache split 4 ways along its sequence:
+   `decode_attend` on 4 gloo ranks over CUDA tensors of this card, each
+   rank's `paged_decode` combined by its log-sum-exp, against the
+   unsharded kernel (`TOL`; the written caches bit for bit).
 
 The last line of standard output is `{"ok": true, "device": {...}}`. The
 full record also goes to `chiprun_out/chip_smoke.json`.
@@ -2642,11 +2648,24 @@ def train_kernel_rows(dtype, name, B, H, Hkv, Sq, Skv, hd, causal, window,
     version and SDPA's backward (the library yardstick). Returns the
     backward's row and the forward-with-LSE row."""
     import torch
-    from repro_torch.kernels.flash_prefill.kernel import (flash_prefill,
+    from repro_torch.kernels.flash_prefill.kernel import (bwd_warpgroups,
+                                                          flash_prefill,
                                                           flash_prefill_bwd)
     from repro_torch.kernels.flash_prefill.ref import (flash_prefill_bwd_ref,
                                                        flash_prefill_ref)
     dn = dtype_name(dtype)
+    # the backward's route and tiles at this shape (kernel.py, csrc)
+    if dtype == torch.float32:
+        design = "f32 CUDA cores, 64-row tiles" if hd <= 128 else \
+            "f32 CUDA cores, 32-row tiles"
+    elif hd > 128:
+        design = "mma.sync, 8 warps, 64-row tiles (hd 256 instance)"
+    else:
+        nc, qh = bwd_warpgroups(
+            B, H, Hkv, Sq, hd,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        design = (f"wgmma+TMA: dK/dV {nc} consumer warpgroup(s) a 64-row "
+                  f"kv tile, dQ {qh} query head(s) a 64-row q tile")
     es = torch.empty((), dtype=dtype).element_size()
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -2697,7 +2716,8 @@ def train_kernel_rows(dtype, name, B, H, Hkv, Sq, Skv, hd, causal, window,
              f"{f' window={window}' if window else ''} H={H} Hkv={Hkv} "
              f"hd={hd}")
     bwd = dict(
-        shape=shape, max_abs_err=max(e for e, _ in errs.values()),
+        shape=shape, design=design,
+        max_abs_err=max(e for e, _ in errs.values()),
         grad_err_of_scale={g: [e, s] for g, (e, s) in errs.items()},
         bound_of_scale=BWD_BOUNDS[dn], ok=ok and same,
         repeat_identical=same,
@@ -2709,6 +2729,8 @@ def train_kernel_rows(dtype, name, B, H, Hkv, Sq, Skv, hd, causal, window,
         bytes=3 * qo_bytes + 2 * kv_bytes_ + B * H * Sq * 4
         + qo_bytes + 2 * kv_bytes_,
         flops=int(2.5 * fwd_flops))
+    bwd["launch_us"] = bwd_launch_us(
+        lambda: flash_prefill_bwd(q, k, v, o, lse, do, **kw))
     fwd = dict(
         shape=shape + " with LSE", max_abs_err=o_err, lse_max_abs_err=lse_err,
         ok=o_ok and lse_ok,
@@ -2721,18 +2743,78 @@ def train_kernel_rows(dtype, name, B, H, Hkv, Sq, Skv, hd, causal, window,
         library="scaled_dot_product_attention",
         bytes=2 * qo_bytes + 2 * kv_bytes_ + B * H * Sq * 4,
         flops=fwd_flops)
-    log(f"kernel flash_prefill_bwd {name} {dn}: grads (max_abs_err, "
-        f"max|ref|) {errs} bound {BWD_BOUNDS[dn]} of max|ref|; "
+    log(f"kernel flash_prefill_bwd {name} {dn} [{design}]: launches us "
+        f"{bwd['launch_us']}; grads "
+        f"(max_abs_err, max|ref|) {errs} bound {BWD_BOUNDS[dn]} of max|ref|; "
         f"repeat_identical={same}; forward LSE max_abs_err={lse_err:.3e} "
         f"{'ok' if lse_ok else 'MISMATCH'}")
     del leaves, out
     return bwd, fwd
 
 
+# the backward's launches by kernel name (csrc/flash_prefill_bwd.cu)
+BWD_LAUNCHES = (("dQ sum", "flash_prefill_bwd_dq_sum"),
+                ("D", "flash_prefill_bwd_dsum"),
+                ("dK/dV", "flash_prefill_bwd_dkdv"),
+                ("dQ", "flash_prefill_bwd_dq"))
+
+
+def bwd_launch_us(fn, calls=5):
+    """Device microseconds of each of the backward's launches (D, dK/dV,
+    dQ and, where dQ's walk is split, the sum of its parts), the mean over
+    the launches torch.profiler recorded in `calls` calls of `fn`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = e.cuda_time_total
+        for label, key in BWD_LAUNCHES:
+            if key in e.key:
+                out[label] = round(dev / max(e.count, 1), 2)
+                break
+    return out
+
+
+def bwd_ptxas(build_log: Path) -> str:
+    """Registers and spill bytes of each wgmma instance of the backward
+    (`-Xptxas -v` of the build), `<kernel><HD,warpgroups,PAD>`."""
+    if not build_log.exists():
+        return "ptxas flash_prefill_bwd: no build log (library reused)"
+    out, entry = [], None
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = None
+            for kern in ("dkdv_wgmma_kernel", "dq_wgmma_kernel"):
+                if kern in name:
+                    args = name.split(kern + "I")[1].split("EEEv")[0]
+                    nums = [a for a in args.replace("Li", " ").replace(
+                        "ELb", " ").replace("E", " ").split()]
+                    entry = f"{kern.split('_wgmma')[0]}<{','.join(nums)}>"
+        elif entry and "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split()[-1]
+        elif entry and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split()[0]
+            out.append(f"{entry} {regs} regs {spill} spill")
+            entry = None
+    return "ptxas flash_prefill_bwd (kernel<HD,warpgroups,PAD>): " + \
+        "; ".join(out)
+
+
 def train_kernel_phase(dtypes):
     """14a. `flash_prefill_bwd` and the forward's LSE at the training shape
     and the other families' attention shapes, f32 and bf16."""
     import torch
+    from repro_torch.kernels.build import BUILD_DIR
+    log(bwd_ptxas(BUILD_DIR / "build.log"))
     results = {}
     for dtype in dtypes:
         dn = dtype_name(dtype)
@@ -3275,8 +3357,12 @@ def ssm_train_phase():
         f32_check=True)
     zcfg = zamba_train_config()
     Lz, apps = zcfg.num_layers, zcfg.num_layers // zcfg.hybrid_attn_every
+    grouped = apps * zcfg.hybrid_attn_every     # mamba blocks in the groups
+    # remat as JAX's: each group is one checkpoint over its blocks' own,
+    # so a grouped block scans 3 times (forward, the group's recompute,
+    # its own), a tail block once; the shared block runs twice
     out["zamba2"], _ = train_step_phase(
-        zcfg, want={"ssd_scan": 2 * Lz, "ssd_scan_bwd": Lz,
+        zcfg, want={"ssd_scan": Lz + 2 * grouped, "ssd_scan_bwd": Lz,
                     "flash_prefill": 2 * apps, "flash_prefill_bwd": apps},
         prepare=lambda p, c: scale_attention(p["shared"]["attn"], c),
         flops_fn=ssm_train_flops, B=SSM_TRAIN_B, S=SSM_TRAIN_S,
@@ -3335,23 +3421,52 @@ DRYRUN_CELLS = (("yi-6b", "train_4k", False), ("yi-6b", "prefill_32k", False),
                 ("yi-6b", "decode_32k", False), ("yi-6b", "decode_32k", True),
                 ("moonshot-v1-16b-a3b", "prefill_32k", False),
                 ("mixtral-8x22b", "prefill_32k", False),
-                ("mamba2-2.7b", "long_500k", False))
+                ("mamba2-2.7b", "long_500k", False),
+                # the remat structure (hybrid groups, encoder-decoder
+                # without remat) shows in a train step's dot flops
+                ("zamba2-7b", "train_4k", False),
+                ("seamless-m4t-large-v2", "train_4k", False))
+
+
+def dryrun_cell(cell):
+    """One cell of `DRYRUN_CELLS` through `lower_cell`, in a process of
+    its own (host work on fake tensors: the card stays idle)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import lower_cell
+    arch, shape, mp = cell
+    t0 = time.perf_counter()
+    rec = lower_cell(arch, shape, multi_pod=mp)
+    rec.pop("collective_ops", None)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+DRYRUN_WORKERS = 3      # processes: zamba2-7b's cell alone is ~2 min
 
 
 def dryrun_phase():
     """Phase 16 (a): each cell of `DRYRUN_CELLS` through `lower_cell` on
-    the fake mesh; its dot flops against JAX's where the committed file
-    holds the cell."""
-    from repro_torch.launch.dryrun import lower_cell
+    the fake mesh, `DRYRUN_WORKERS` cells at a time (each in a spawned
+    process with its own fake process group); its dot flops against
+    JAX's where the committed file holds the cell."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     jax_flops = json.loads((ROOT / "tests" / "torch_dryrun_jax_flops.json")
                            .read_text())["dot_flops"]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the longest cells first, so that they do not start last
+        order = sorted(range(len(DRYRUN_CELLS)),
+                       key=lambda i: DRYRUN_CELLS[i][0] != "zamba2-7b")
+        futs = {i: pool.submit(dryrun_cell, DRYRUN_CELLS[i]) for i in order}
+        recs = [futs[i].result() for i in range(len(DRYRUN_CELLS))]
+    log(f"dryrun: {len(recs)} cells in {time.perf_counter() - t0:.1f}s "
+        f"({DRYRUN_WORKERS} processes)")
     out, bad = [], []
-    for arch, shape, mp in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        rec = lower_cell(arch, shape, multi_pod=mp)
-        secs = time.perf_counter() - t0
-        rec.pop("collective_ops", None)
-        rec["wall_s"] = secs
+    for (arch, shape, mp), rec in zip(DRYRUN_CELLS, recs):
+        secs = rec["wall_s"]
         flops = rec["cost_corrected"]["dot_flops"]
         want = jax_flops.get(f"{arch}/{shape}")
         coll = {k: f"{v / 1e9:.3f}GB"
@@ -3371,6 +3486,57 @@ def dryrun_phase():
     if bad:
         raise SystemExit(f"dryrun: {bad} failed or differ from JAX")
     return out
+
+
+def seq_sharded_decode_phase():
+    """16c. `models/sharded.py::decode_attend` with the cache split 4 ways
+    along its sequence, on 4 gloo ranks over CUDA tensors of this card
+    (`tests/torch_sharded_worker.py decode_cuda`): each rank runs
+    `paged_insert` and `paged_decode` over its shard, the ranks combine by
+    the kernel's log-sum-exp. Held to the unsharded kernel: f32 and bf16
+    within `TOL`, the written caches bit for bit."""
+    import os
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_sharded_worker import decode_cuda_expected, decode_cuda_inputs
+    work = ROOT / "build" / "seq_decode"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "gloo_store").unlink(missing_ok=True)
+    d = decode_cuda_inputs()
+    np.savez(work / "in.npz", **d)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "torch_sharded_worker.py"),
+         str(work / "in.npz"), str(work / "out.npz"), "decode_cuda"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise SystemExit(f"seq-sharded decode: the 4 ranks failed "
+                         f"(rc {r.returncode}):\n{r.stderr[-3000:]}")
+    out = dict(np.load(work / "out.npz"))
+    res, ok = {"placements": list(out["cu_placements"]), "seconds": secs}, \
+        "Shard(dim=1)" in list(out["cu_placements"])
+    for dn, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        want, kc, vc = decode_cuda_expected(d, dtype, "cuda")
+        got = torch.from_numpy(out[f"cu_{dn}_o"]).cuda()
+        err, good = max_err(got, want, dtype_name(dtype))
+        same = bool(np.array_equal(out[f"cu_{dn}_kc"],
+                                   kc.float().cpu().numpy())
+                    and np.array_equal(out[f"cu_{dn}_vc"],
+                                       vc.float().cpu().numpy()))
+        res[dn] = dict(max_abs_err=err, ok=good, caches_equal=same)
+        ok = ok and good and same
+    log(f"seq-sharded decode on the card: 4 gloo ranks over CUDA tensors, "
+        f"Smax 256 split 4 ways ({res['placements']}), rows on ranks 0 "
+        f"and 2, rank 3 without a live key; against the unsharded kernel "
+        f"f32 {res['f32']} bf16 {res['bf16']} in {secs:.1f}s "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit("seq-sharded decode differs from the unsharded "
+                         "kernel")
+    return res
 
 
 def serve_metrics_phase():
@@ -3574,6 +3740,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["dryrun"] = dryrun_phase()
     record["serve_metrics"] = serve_metrics_phase()
+    record["seq_sharded_decode"] = seq_sharded_decode_phase()
 
     serves = {"yi-6b": record["serve"], "mamba2-2.7b": record["serve_mamba"],
               "gemma3-1b": record["serve_gemma"],

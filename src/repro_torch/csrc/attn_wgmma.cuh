@@ -13,7 +13,8 @@
 //     8-row groups are SBO = 8 RB bytes apart; the k-step of 16 elements
 //     (32 bytes) moves 32 bytes along the row, into the next box when the
 //     row's RB bytes are used up.
-//   - MN-major operand (V in P.V: kv rows are K, the head dim is N): K
+//   - MN-major operand (V in P.V, and in the backward dO in dV += P^T dO,
+//     Q in dK += dS^T Q, K in dQ += dS K: rows are K, the head dim is N): K
 //     rows are RB bytes apart, 8-row groups SBO = 8 RB, and the N-blocks
 //     of RB bytes (the boxes) LBO = 64 RB apart; the k-step of 16 kv rows
 //     moves 16 RB bytes. The transpose bit of the instruction says so.
@@ -91,6 +92,29 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both addresses on 16 bytes)
+// from global into shared memory, counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Move registers between warpgroups of a warp-specialised block: every
+// warp of a warpgroup runs it, the producer lowering its count and the
+// consumers raising theirs (N a multiple of 8 in 24..256).
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------------------
@@ -173,6 +197,56 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64 x n64, f32) = A (64 x 16 bf16, registers) * B (n64 x 16, K-major
+// in shared memory)^T, plus d where scale_d is 1
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[8][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The A-fragments (mma.sync's m16 x k16 layout, which wgmma also takes
+// from registers) of a warp's rows r0 .. r0 + 15 of a 64 x HD tile at
+// shared address `tile` that TMA wrote in swizzled boxes: the 16-byte
+// chunk at byte `off` of a box lies at off ^ (((off >> 7) & MASK) << 4),
+// MASK 7, 3 or 1 for the 128B, 64B or 32B swizzle. One ldmatrix.x4 a
+// k-step of 16 columns.
+template <int HD>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[HD / 16][4],
+                                             uint32_t tile, int r0) {
+  using W = WgBox<HD>;
+  constexpr uint32_t MASK = W::RB == 128 ? 7 : W::RB == 64 ? 3 : 1;
+  const int lane = threadIdx.x % 32;
+  const uint32_t r = r0 + lane % 16;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t cb = kk * 32 + (lane / 16) * 16;   // byte of the row
+    const uint32_t off = r * W::RB + cb % W::RB;
+    const uint32_t addr = tile + (cb / W::RB) * W::BYTES +
+                          (off ^ (((off >> 7) & MASK) << 4));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]), "=r"(f[kk][3])
+        : "r"(addr)
+        : "memory");
+  }
 }
 
 // d (m64 x n16, f32) += A (64 x 16 bf16, registers) * B (16 x n16,
@@ -284,6 +358,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 8][4],
     wgmma_rs_n128<0>(d, a, db);
     wgmma_rs_n128<16>(d, a, db + HALF);
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: fetched once through the
+// runtime, so the library needs no -lcuda.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (head dim, seq, head, batch) of a bf16 (B, heads, S, hd) view
+// with element strides (sb, sh, ss), in boxes of (COLS, 64, 1, 1) that
+// tile the instance's HD >= hd columns: the columns past hd, like the rows
+// past S, are out of bounds and arrive zero-filled (and still count in
+// the box's bytes on the barrier).
+template <int HD>
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd,
+                            int S, int heads, int B, long long sb,
+                            long long sh, long long ss) {
+  using W = WgBox<HD>;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)W::COLS, 64, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = W::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : W::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace attn

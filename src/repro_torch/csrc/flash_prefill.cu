@@ -385,62 +385,6 @@ __global__ void __launch_bounds__(SIMT_NT)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: fetched once through the
-// runtime, so the library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D map (head dim, seq, head, batch) of a bf16 (B, heads, S, hd) view
-// with element strides (sb, sh, ss), in boxes of (COLS, 64, 1, 1) that
-// tile the instance's HD >= hd columns: the columns past hd, like the rows
-// past S, are out of bounds and arrive zero-filled (and still count in
-// the box's bytes on the barrier).
-template <int HD>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd, int S,
-                     int heads, int B, long long sb, long long sh,
-                     long long ss) {
-  using W = WgBox<HD>;
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)W::COLS, 64, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = W::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : W::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // Shared memory of the bf16 kernel: QH Q tiles and the K and V rings,
 // 1024 bytes of alignment slack, the barriers. At HD = 256 a tile is 32
 // KB: one query head a block fits (7 tiles, 225 KB of the 227 KB a block

@@ -29,7 +29,12 @@
 // - paged_decode_combine_kernel, one block per (sequence, head): merges
 //   the live splits in a fixed order with corr = exp(m_i - m_max), then
 //   divides by max(l, 1e-37). No atomics: outputs repeat bit for bit, and
-//   lens[b] = 0 gives 0 as the TPU kernel does.
+//   lens[b] = 0 gives 0 as the TPU kernel does. Given a buffer, it also
+//   writes each row's log-sum-exp of its scaled (and capped) live scores,
+//   m_max + ln(max(l, 1e-37)): a cache sharded along its sequence
+//   (models/sharded.py::decode_attend) combines the ranks' outputs by it.
+//   A row with no live key gets NEG_INF + ln(1e-37), about NEG_INF, whose
+//   weight beside any live rank's is 0.
 //
 // The split count is chosen on the host from shapes alone
 // (kernels/paged_decode/kernel.py::decode_split); lens never goes back to
@@ -354,12 +359,13 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_split_kernel(
 }
 
 // One block of hd (<= HD) threads per (sequence, head): merge the live
-// splits in split order, then o = acc / max(l, 1e-37) in the storage type.
+// splits in split order, then o = acc / max(l, 1e-37) in the storage type,
+// and the row's log-sum-exp into lse[bh] where lse is given.
 template <typename T, int HD, bool PAD>
 __global__ void __launch_bounds__(HD) paged_decode_combine_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-    const int* __restrict__ lens, T* __restrict__ o, int H, int hd_arg,
-    int page, int pps, int split_pages, int n_split) {
+    const int* __restrict__ lens, T* __restrict__ o, float* __restrict__ lse,
+    int H, int hd_arg, int page, int pps, int split_pages, int n_split) {
   const int hd = head_dim<HD, PAD>(hd_arg);
   const int bh = blockIdx.x, d = threadIdx.x;
   const int len = min(lens[bh / H], pps * page);
@@ -376,6 +382,7 @@ __global__ void __launch_bounds__(HD) paged_decode_combine_kernel(
     a += acc[(long long)s * hd + d] * corr;
   }
   o[(long long)bh * hd + d] = from_f32<T>(a / fmaxf(l, DEN_MIN));
+  if (lse != nullptr && d == 0) lse[bh] = m_max + logf(fmaxf(l, DEN_MIN));
 }
 
 template <typename T, int HD, bool PAD, bool INSERT, typename TN>
@@ -385,7 +392,7 @@ static cudaError_t launch_decode(const void* q, const void* kp,
                                  int H, int Hkv, int hd, int page, int pps,
                                  int split_pages, int n_split, float scale,
                                  float softcap, InsertRows<T, TN> ins,
-                                 cudaStream_t stream) {
+                                 float* lse, cudaStream_t stream) {
   auto kern = paged_decode_split_kernel<T, HD, PAD, INSERT, TN>;
   const size_t bytes = DecodeSmem<T, HD>::bytes(H / Hkv);
   cudaError_t err = allow_smem(kern, bytes);
@@ -400,8 +407,8 @@ static cudaError_t launch_decode(const void* q, const void* kp,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_decode_combine_kernel<T, HD, PAD><<<B * H, hd, 0, stream>>>(
-      ws_acc, ws_ml, static_cast<const int*>(lens), static_cast<T*>(o), H,
-      hd, page, pps, split_pages, n_split);
+      ws_acc, ws_ml, static_cast<const int*>(lens), static_cast<T*>(o), lse,
+      H, hd, page, pps, split_pages, n_split);
   return cudaGetLastError();
 }
 
@@ -415,14 +422,15 @@ static bool decode_shapes_ok(int H, int Hkv, int pps, int split_pages,
 // page, Hkv, hd), table (B, pps) i32, lens (B,) i32, all contiguous, the
 // pools on 16 bytes; H / Hkv <= 16; hd a multiple of 16 up to 256
 // (attn_common.cuh). ws: f32 workspace of B * H * n_split * (hd + 2)
-// floats, 16-byte aligned. Launches the split kernel and the
-// combine kernel on `stream`. Returns a cudaError_t code.
+// floats, 16-byte aligned. lse: a (B, H) f32 buffer for each row's
+// log-sum-exp, or null. Launches the split kernel and the combine kernel
+// on `stream`. Returns a cudaError_t code.
 extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
                             const void* vp, const void* table,
                             const void* lens, void* o, void* ws, int B,
                             int H, int Hkv, int page, int pps,
                             int split_pages, int n_split, float scale,
-                            float softcap, void* stream) {
+                            float softcap, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0) return 0;
   if (!decode_shapes_ok(H, Hkv, pps, split_pages, n_split))
@@ -432,12 +440,12 @@ extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
     ATTN_DISPATCH_HD(hd, HD, PAD,
         err = (launch_decode<float, HD, PAD, false, float>(
             q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
-            split_pages, n_split, scale, softcap, {}, s)));
+            split_pages, n_split, scale, softcap, {}, lse, s)));
   } else if (dtype == 1) {
     ATTN_DISPATCH_HD(hd, HD, PAD,
         err = (launch_decode<__nv_bfloat16, HD, PAD, false, __nv_bfloat16>(
             q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
-            split_pages, n_split, scale, softcap, {}, s)));
+            split_pages, n_split, scale, softcap, {}, lse, s)));
   }
   return static_cast<int>(err);
 }
@@ -446,7 +454,7 @@ extern "C" int paged_decode(int dtype, int hd, const void* q, const void* kp,
 // sequence, then paged_decode, in the same two launches as paged_decode.
 // new_dtype: the type of k/v_new (B, Hkv, hd) contiguous, 0 = float32 or
 // the pools' dtype; they are rounded to the pools' type in the kernel. The
-// pools are written in place. Otherwise as paged_decode.
+// pools are written in place. Otherwise as paged_decode, lse included.
 extern "C" int paged_insert_decode(int dtype, int new_dtype, int hd,
                                    const void* q, const void* kn,
                                    const void* vn, void* kp, void* vp,
@@ -454,7 +462,7 @@ extern "C" int paged_insert_decode(int dtype, int new_dtype, int hd,
                                    void* o, void* ws, int B, int H, int Hkv,
                                    int page, int pps, int split_pages,
                                    int n_split, float scale, float softcap,
-                                   void* stream) {
+                                   float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!decode_shapes_ok(H, Hkv, pps, split_pages, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -467,7 +475,7 @@ extern "C" int paged_insert_decode(int dtype, int new_dtype, int hd,
     ATTN_DISPATCH_HD(hd, HD, PAD,
         err = (launch_decode<float, HD, PAD, true, float>(
             q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
-            split_pages, n_split, scale, softcap, ins, s)));
+            split_pages, n_split, scale, softcap, ins, lse, s)));
   } else if (dtype == 1 && new_dtype == 1) {
     const InsertRows<BF, BF> ins{
         static_cast<const BF*>(kn), static_cast<const BF*>(vn),
@@ -475,7 +483,7 @@ extern "C" int paged_insert_decode(int dtype, int new_dtype, int hd,
     ATTN_DISPATCH_HD(hd, HD, PAD,
         err = (launch_decode<BF, HD, PAD, true, BF>(
             q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
-            split_pages, n_split, scale, softcap, ins, s)));
+            split_pages, n_split, scale, softcap, ins, lse, s)));
   } else if (dtype == 1 && new_dtype == 0) {
     const InsertRows<BF, float> ins{
         static_cast<const float*>(kn), static_cast<const float*>(vn),
@@ -483,7 +491,7 @@ extern "C" int paged_insert_decode(int dtype, int new_dtype, int hd,
     ATTN_DISPATCH_HD(hd, HD, PAD,
         err = (launch_decode<BF, HD, PAD, true, float>(
             q, kp, vp, table, lens, o, ws, B, H, Hkv, hd, page, pps,
-            split_pages, n_split, scale, softcap, ins, s)));
+            split_pages, n_split, scale, softcap, ins, lse, s)));
   }
   return static_cast<int>(err);
 }

@@ -34,14 +34,15 @@ SIGNATURES = {
     "flash_prefill": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _F, _F, _I, _P, _P],
     "flash_prefill_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                          _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                          _I, _P, _P],
     "prefix_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _I, _F, _F, _P],
     "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _F, _F, _P],
+                     _I, _I, _F, _F, _P, _P],
     "paged_insert": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "paged_insert_decode": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                  _I, _I, _I, _I, _I, _I, _P, _P],
     "ssd_scan_bwd": [_I, _I] + [_P] * 24 + [_I] * 6 + [_P],

@@ -9,7 +9,9 @@ CUDA tensors only; each launch adds one to `flash_prefill.launches`.
 
 `flash_prefill_bwd` wraps `csrc/flash_prefill_bwd.cu`, the gradient,
 from the forward's output and log-sum-exp; each call (three kernel
-launches) adds one to `flash_prefill_bwd.launches`.
+launches, four where the bf16 dQ pass splits its walk) adds one to
+`flash_prefill_bwd.launches`. The warpgroups of its bf16 kernels and the
+dQ split come from shapes alone (`bwd_warpgroups`, `bwd_dq_split`).
 """
 from __future__ import annotations
 
@@ -40,6 +42,39 @@ def flash_heads_per_block(B: int, H: int, Hkv: int, Sq: int,
     if hd <= 128 and (H // Hkv) % 2 == 0 and 4 * blocks >= 3 * sm_count:
         return 2
     return 1
+
+
+def bwd_warpgroups(B: int, H: int, Hkv: int, Sq: int, hd: int = 128,
+                   sm_count: int = 132) -> tuple:
+    """(NC, QH) of the bf16 backward kernels at hd <= 128, from shapes
+    alone: NC consumer warpgroups of the dK/dV kernel, which take
+    alternate items (query head of the group, 64-row q tile) of a block's
+    walk over the same 64 kv rows, and QH query heads a block of the dQ
+    kernel. NC = 2 where a walk has at least two items (G ceil(Sq / 64)
+    >= 2), so the two warpgroups' products interleave on the tensor cores;
+    one item leaves the second idle. QH follows the forward
+    (`flash_heads_per_block`): the dQ kernel holds Q and dO of QH heads and
+    streams K and V as the forward streams them. Head dims above 128 run
+    the mma.sync kernels of the 256 instance, which take neither: (1,
+    1)."""
+    if hd > 128:
+        return 1, 1
+    nc = 2 if (H // Hkv) * -(-Sq // BQ) >= 2 else 1
+    return nc, flash_heads_per_block(B, H, Hkv, Sq, sm_count, hd)
+
+
+def bwd_dq_split(B: int, H: int, Sq: int, Skv: int, qh: int,
+                 hd: int = 128, sm_count: int = 132) -> int:
+    """Parts of each q tile's kv walk in the bf16 dQ kernel (hd <= 128),
+    from shapes alone: 1 where its B H / QH ceil(Sq / 64) blocks fill at
+    least half the SMs, else as many parts as fill the card, each at
+    least two 64-key tiles long (seamless-m4t's cross-attention, 64
+    queries over 1024 frames: 16 blocks, cut 8 ways). The parts' f32 sums
+    are added in a fourth launch."""
+    blocks = B * H // qh * -(-Sq // BQ)
+    if hd > 128 or 2 * blocks >= sm_count:
+        return 1
+    return max(1, min(-(-Skv // 64) // 2, sm_count // blocks))
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,16 +174,26 @@ def flash_prefill_bwd(q, k, v, o, lse, do, *, causal=True, window: int = 0,
         return tuple(g[..., :hd] for g in grads)
     head_dim_instance(name, hd)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # LSE and D = rowsum(dO o O) by 64-row tiles, (B H, nq, 2, 64)
+    ld = torch.empty(B * H * -(-Sq // BQ) * 2 * BQ, dtype=torch.float32,
+                     device=q.device)
     require_aligned(name, q, k, v, o, do, dq, dk, dv)
     strides = bhs_strides(q, k, v, o, do, dq, dk, dv)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    sm = _sm_count(q.device.index or 0)
+    nc, qh = bwd_warpgroups(B, H, Hkv, Sq, hd, sm)
+    split = bwd_dq_split(B, H, Sq, Skv, qh, hd, sm) \
+        if q.dtype == torch.bfloat16 else 1
+    part = torch.empty(split * B * H * -(-Sq // BQ) * BQ * hd,
+                       dtype=torch.float32, device=q.device) \
+        if split > 1 else None
     check(library().flash_prefill_bwd(
         DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), ld.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B, H, Hkv, Sq,
         Skv, int(bool(causal)), int(window), float(scale),
-        float(softcap or 0.0), stream_of(q)), name)
+        float(softcap or 0.0), nc, qh, split,
+        None if part is None else part.data_ptr(), stream_of(q)), name)
     flash_prefill_bwd.launches += 1
     return dq, dk, dv
 

@@ -62,31 +62,38 @@ def _check_decode(name, q, k_pages, v_pages, block_table, lens):
 
 
 def _by_groups(q, Hkv, run):
-    """`run(q_part, first)` over slices of at most `DEC_GMAX` query heads
-    of each kv head's group (the split kernel's largest group), the
-    outputs put back in head order; `first` is true for the first slice
-    only. A group of at most `DEC_GMAX` is one call on `q` itself."""
+    """`run(q_part, first)` -> (out, lse or None) over slices of at most
+    `DEC_GMAX` query heads of each kv head's group (the split kernel's
+    largest group), both put back in head order; `first` is true for the
+    first slice only. A group of at most `DEC_GMAX` is one call on `q`
+    itself."""
     B, H, hd = q.shape
     G = H // Hkv
     if G <= DEC_GMAX:
         return run(q, True)
     qg = q.view(B, Hkv, G, hd)
-    outs = []
+    outs, lses = [], []
     for g0 in range(0, G, DEC_GMAX):
         g = min(DEC_GMAX, G - g0)
-        part = qg[:, :, g0:g0 + g].reshape(B, Hkv * g, hd)
-        outs.append(run(part, g0 == 0).view(B, Hkv, g, hd))
-    return torch.cat(outs, dim=2).view(B, H, hd)
+        # contiguous: with one kv head the slice reshapes to a view with
+        # the whole group's batch stride, which the kernel does not take
+        part = qg[:, :, g0:g0 + g].reshape(B, Hkv * g, hd).contiguous()
+        out, lse = run(part, g0 == 0)
+        outs.append(out.view(B, Hkv, g, hd))
+        lses.append(None if lse is None else lse.view(B, Hkv, g))
+    lse = None if lses[0] is None else torch.cat(lses, dim=2).view(B, H)
+    return torch.cat(outs, dim=2).view(B, H, hd), lse
 
 
 def _launch_decode(q, k_pages, v_pages, block_table, lens, scale, softcap,
-                   k_new=None, v_new=None):
+                   k_new=None, v_new=None, with_lse=False):
     """Launch the C entry `paged_decode`, or `paged_insert_decode` when new
     rows are given, over query-head slices of at most `DEC_GMAX` a group
     (the rows go in with the first slice; the rest only read them), or
     zero-padded to the next multiple of 16 where the head dim is not one:
     the pools are then padded copies, and an insert is copied back into
-    the pools. -> (B, H, hd)."""
+    the pools. -> ((B, H, hd), the (B, H) f32 log-sum-exp of each row's
+    scaled and capped live scores where `with_lse`, else None)."""
     B, H, hd = q.shape
     Hkv = k_pages.shape[2]
     hdp = padded_head_dim("paged_decode", hd)
@@ -95,25 +102,26 @@ def _launch_decode(q, k_pages, v_pages, block_table, lens, scale, softcap,
         kp, vp = pad_head_dim(k_pages, hdp), pad_head_dim(v_pages, hdp)
         new = [None if t is None else pad_head_dim(t, hdp)
                for t in (k_new, v_new)]
-        out = _launch_decode(pad_head_dim(q, hdp), kp, vp, block_table,
-                             lens, scale, softcap, *new)
+        out, lse = _launch_decode(pad_head_dim(q, hdp), kp, vp, block_table,
+                                  lens, scale, softcap, *new, with_lse)
         if k_new is not None:
             k_pages.copy_(kp[..., :hd])
             v_pages.copy_(vp[..., :hd])
-        return out[..., :hd].contiguous()
+        return out[..., :hd].contiguous(), lse
 
     def run(part, first):
         new = (k_new, v_new) if first else (None, None)
         return _launch_split(part, k_pages, v_pages, block_table, lens,
-                             scale, softcap, *new)
+                             scale, softcap, *new, with_lse)
     return _by_groups(q, Hkv, run)
 
 
 def _launch_split(q, k_pages, v_pages, block_table, lens, scale, softcap,
-                  k_new=None, v_new=None):
-    """Allocate the output and the split workspace and launch one C entry,
-    for a group of at most `DEC_GMAX` query heads and a compiled head
-    dim."""
+                  k_new=None, v_new=None, with_lse=False):
+    """Allocate the output (and the log-sum-exp where `with_lse`) and the
+    split workspace and launch one C entry, for a group of at most
+    `DEC_GMAX` query heads and a compiled head dim. -> (out, lse or
+    None)."""
     head_dim_instance("paged_decode", q.shape[2])
     require_aligned("paged_decode", k_pages, v_pages)
     B, H, hd = q.shape
@@ -124,11 +132,13 @@ def _launch_split(q, k_pages, v_pages, block_table, lens, scale, softcap,
     out = torch.empty_like(q)
     ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
                      device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     tail = (k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
             lens.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, Hkv, page,
             pps, per, n_split, float(scale), float(softcap or 0.0),
-            stream_of(q))
+            None if lse is None else lse.data_ptr(), stream_of(q))
     if k_new is None:
         check(library().paged_decode(DTYPE_CODES[q.dtype], hd, q.data_ptr(),
                                      *tail), "paged_decode")
@@ -137,25 +147,31 @@ def _launch_split(q, k_pages, v_pages, block_table, lens, scale, softcap,
             DTYPE_CODES[q.dtype], DTYPE_CODES[k_new.dtype], hd, q.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), *tail),
             "paged_insert_decode")
-    return out
+    return out, lse
 
 
 def paged_decode(q, k_pages, v_pages, block_table, lens, *, scale=None,
-                 softcap: float = 0.0):
+                 softcap: float = 0.0, return_lse: bool = False):
     """q: (B, H, hd); k/v_pages: (num_pages, page, Hkv, hd); block_table:
-    (B, pps) i32; lens: (B,) i32 -> (B, H, hd). Two launches (split,
-    combine) count as one call of the op, as do the launches of a group
-    above `DEC_GMAX` query heads, which runs in slices (`_by_groups`)."""
+    (B, pps) i32; lens: (B,) i32 -> (B, H, hd), and with `return_lse` also
+    the (B, H) f32 log-sum-exp of each row's scaled (and capped) live
+    scores (about -2.38e38 for a row with no live key). Two launches
+    (split, combine) count as one call of the op, as do the launches of a
+    group above `DEC_GMAX` query heads, which runs in slices
+    (`_by_groups`)."""
     _check_decode("paged_decode", q, k_pages, v_pages, block_table, lens)
     if q.numel() == 0:
-        return torch.zeros_like(q)      # no query: nothing to launch
+        # no query: nothing to launch
+        out = torch.zeros_like(q)
+        return (out, torch.zeros(q.shape[:2], device=q.device)) \
+            if return_lse else out
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     block_table, lens = block_table.contiguous(), lens.contiguous()
-    out = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
-                         softcap)
+    out, lse = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
+                              softcap, with_lse=return_lse)
     paged_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_decode.launches = 0
@@ -190,8 +206,8 @@ def paged_insert_decode(q, k_new, v_new, k_pages, v_pages, block_table,
         return torch.zeros_like(q)      # no sequence: nothing to launch
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     block_table, lens = block_table.contiguous(), lens.contiguous()
-    out = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
-                         softcap, k_new, v_new)
+    out, _ = _launch_decode(q, k_pages, v_pages, block_table, lens, scale,
+                            softcap, k_new, v_new)
     paged_decode.launches += 1
     paged_insert.launches += 1
     paged_insert_decode.launches += 1

@@ -16,9 +16,12 @@ from .ref import paged_decode_ref, paged_insert_decode_ref, paged_insert_ref
 
 def paged_decode_op(q, k_pages, v_pages, block_table, lens, *,
                     scale: float = None, softcap: float = 0.0,
-                    dbuf: bool = False, plain: bool = False):
+                    dbuf: bool = False, plain: bool = False,
+                    return_lse: bool = False):
     """q: (B, H, hd); k/v_pages: (num_pages, page, Hkv, hd); block_table:
-    (B, pps) i32; lens: (B,) i32 -> (B, H, hd).
+    (B, pps) i32; lens: (B,) i32 -> (B, H, hd), and with `return_lse`
+    also each row's (B, H) f32 log-sum-exp of its scaled (and capped) live
+    scores, by which partial outputs over disjoint keys combine.
 
     `dbuf` is kept for signature parity with the JAX op: on the TPU it
     picks a double-buffered DMA schedule of the same function; here both
@@ -26,10 +29,12 @@ def paged_decode_op(q, k_pages, v_pages, block_table, lens, *,
     del dbuf
     if plain or not q.is_cuda:
         return paged_decode_ref(q, k_pages, v_pages, block_table, lens,
-                                scale=scale, softcap=softcap)
+                                scale=scale, softcap=softcap,
+                                return_lse=return_lse)
     require_no_grad("paged_decode_op", q, k_pages, v_pages)
     return kernel.paged_decode(q, k_pages, v_pages, block_table, lens,
-                               scale=scale, softcap=softcap)
+                               scale=scale, softcap=softcap,
+                               return_lse=return_lse)
 
 
 def paged_insert_op(k_pages, v_pages, k_new, v_new, page_idx, offset, *,

@@ -10,10 +10,14 @@ NEG_INF = -2.3819763e38
 
 
 def paged_decode_ref(q, k_pages, v_pages, block_table, lens, *,
-                     scale=None, softcap: float = 0.0):
+                     scale=None, softcap: float = 0.0,
+                     return_lse: bool = False):
     """q: (B, H, hd); k/v_pages: (num_pages, page, Hkv, hd); block_table:
     (B, pps) i32; lens: (B,) i32 -> (B, H, hd). Gathers each sequence's
-    pages densely (what the kernel avoids) and softmaxes in f32."""
+    pages densely (what the kernel avoids) and softmaxes in f32. With
+    `return_lse` also the (B, H) f32 log-sum-exp of each row's scaled (and
+    capped) scores, masked ones at NEG_INF (about NEG_INF for a row with
+    no live key)."""
     B, H, hd = q.shape
     num_pages, page_size, Hkv, _ = k_pages.shape
     pps = block_table.shape[1]
@@ -31,8 +35,8 @@ def paged_decode_ref(q, k_pages, v_pages, block_table, lens, *,
     mask = pos[None, :] < lens.long()[:, None]
     s = torch.where(mask[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhs,bshd->bhd", p, vr.float())
-    return o.to(q.dtype)
+    o = torch.einsum("bhs,bshd->bhd", p, vr.float()).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
 
 
 def insert_at_lens(k_pages, v_pages, k_new, v_new, block_table, lens,

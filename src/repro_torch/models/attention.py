@@ -188,17 +188,21 @@ def slab_pages(k_cache, v_cache):
 
 
 def slab_attend(q, k_cache, v_cache, kv_len, *, scale: Optional[float] = None,
-                logit_softcap: float = 0.0, plain: bool = False):
+                logit_softcap: float = 0.0, plain: bool = False,
+                return_lse: bool = False):
     """One-token attention against a slab cache (JAX `decode_attend` with
     `window=0`). q: (B, H, hd); caches: (B, Smax, Hkv, hd); kv_len: (B,)
     i32 valid slots. A ring cache (sliding window) holds the last Smax
     tokens in rotation and is masked by slot validity alone, which is what
     `kv_len = min(pos + 1, Smax)` gives: softmax does not depend on the
     order of the keys. Runs the `paged_decode` kernel over the slab's page
-    view (its plain version on the CPU or with `plain`). -> (B, H, hd)."""
+    view (its plain version on the CPU or with `plain`). -> (B, H, hd), and
+    with `return_lse` also the (B, H) f32 log-sum-exp of each row's live
+    scores (`paged_decode_op`)."""
     kp, vp, table = slab_pages(k_cache, v_cache)
     lens = torch.broadcast_to(torch.as_tensor(kv_len, dtype=torch.int32,
                                               device=q.device),
                               (q.shape[0],)).contiguous()
     return paged_decode_op(q, kp, vp, table, lens, scale=scale,
-                           softcap=logit_softcap, plain=plain)
+                           softcap=logit_softcap, plain=plain,
+                           return_lse=return_lse)

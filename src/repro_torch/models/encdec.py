@@ -22,7 +22,7 @@ import torch
 
 from . import sharded
 from .common import (TensorSpec, apply_norm, embed_lookup, layer_of,
-                     norm_params, param, remat_layer, shard)
+                     norm_params, param, shard)
 from .moe import dense_ffn_apply, dense_ffn_params
 from .transformer import (_out_proj, _qkv, attn_decode, attn_full,
                           attn_params, slab_slots)
@@ -84,15 +84,14 @@ def _enc_layer(x, pl, cfg, positions, attn_blocks, plain):
 
 
 def encode(params, src_embeds, cfg, attn_blocks=(512, 512),
-           plain: bool = False, remat: bool = False):
+           plain: bool = False):
     """src_embeds: (B, T, d) frame embeddings -> encoder output (B, T, d)."""
     x = shard(src_embeds, "batch", None, "embed_act")
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None]
-    layer = remat_layer(_enc_layer, remat)
     for l in range(cfg.encoder_layers):
-        x = layer(x, layer_of(params["enc"], l), cfg, positions, attn_blocks,
-                  plain)
+        x = _enc_layer(x, layer_of(params["enc"], l), cfg, positions,
+                       attn_blocks, plain)
     return apply_norm(x, params["enc_norm"], cfg)
 
 
@@ -114,17 +113,16 @@ def _dec_layer(x, pl, enc_out, cfg, positions, attn_blocks, plain):
 
 
 def _decoder_forward(params, tgt_tokens, enc_out, cfg, attn_blocks,
-                     return_cache=False, max_len=None, plain=False,
-                     remat=False):
+                     return_cache=False, max_len=None, plain=False):
     x = params["embed"][tgt_tokens.long()]
     x = shard(x, "batch", None, "embed_act")
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ks, vs, xks, xvs = [], [], [], []
-    layer = remat_layer(_dec_layer, remat)
     for l in range(cfg.num_layers):
-        x, (k, v), (xk, xv) = layer(x, layer_of(params["dec"], l), enc_out,
-                                    cfg, positions, attn_blocks, plain)
+        x, (k, v), (xk, xv) = _dec_layer(x, layer_of(params["dec"], l),
+                                         enc_out, cfg, positions,
+                                         attn_blocks, plain)
         if return_cache:
             ks.append(k)
             vs.append(v)
@@ -152,14 +150,14 @@ def _decoder_forward(params, tgt_tokens, enc_out, cfg, attn_blocks,
 def forward(params, batch, cfg, *, remat=False, attn_blocks=(512, 512),
             return_cache=False, max_len=None, plain: bool = False):
     """batch: {"src_embeds": (B, T, d), "tokens": (B, S)}. Returns
-    (logits, cache, aux). `remat` recomputes each encoder and decoder
-    layer in the backward (the JAX forward takes the flag and ignores
-    it; recomputing changes no value)."""
-    enc_out = encode(params, batch["src_embeds"], cfg, attn_blocks, plain,
-                     remat)
+    (logits, cache, aux). `remat` is taken and ignored, as the JAX forward
+    does (`repro/models/encdec.py::forward`): nothing is recomputed in the
+    backward, so the step's products are those of JAX's."""
+    del remat
+    enc_out = encode(params, batch["src_embeds"], cfg, attn_blocks, plain)
     logits, cache = _decoder_forward(params, batch["tokens"], enc_out, cfg,
                                      attn_blocks, return_cache, max_len,
-                                     plain, remat)
+                                     plain)
     return logits, cache, 0.0
 
 

@@ -86,8 +86,9 @@ def _mamba_block(x, pl, cfg, plain):
 
 
 def _mamba_run(layers, n, x, cfg, plain, states, remat=False):
-    """Prefill `n` stacked mamba blocks; appends each block's (ssm, conv)
-    to `states` when it is a list."""
+    """Prefill `n` stacked mamba blocks, each recomputed in the backward
+    where `remat`; appends each block's (ssm, conv) to `states` when it is
+    a list."""
     block = remat_layer(_mamba_block, remat)
     for l in range(n):
         x, st = block(x, layer_of(layers, l), cfg, plain)
@@ -109,8 +110,11 @@ def forward(params, tokens, cfg, *, remat=False, attn_blocks=(512, 512),
     """tokens: (B, S) int. Returns (logits, cache, aux). With
     `return_cache`, only the last position's logits (B, 1, V) and the
     cache of `cache_specs`' layout, k/v padded to `max_len` (default S).
-    `frontend_embeds` is taken, and unused, as in JAX. `remat` recomputes
-    each mamba block and each shared block in the backward."""
+    `frontend_embeds` is taken, and unused, as in JAX. `remat` checkpoints
+    as JAX's `forward` does (`repro/models/hybrid.py`): each group (its
+    `every` mamba blocks, each under its own checkpoint, then the shared
+    block) is one checkpoint, so its backward reruns the group and, within
+    it, each block once more; the tail's blocks are not rematted."""
     del frontend_embeds
     every, n_groups, tail = _plan(cfg)
     x = params["embed"][tokens.long()]
@@ -119,19 +123,24 @@ def forward(params, tokens, cfg, *, remat=False, attn_blocks=(512, 512),
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     g_states = [] if return_cache else None
     ks, vs = [], []
-    shared = remat_layer(_shared_block, remat)
+
+    def group(x, pg):
+        states = [] if return_cache else None
+        x = _mamba_run(pg, every, x, cfg, plain, states, remat)
+        x, kv = _shared_block(params["shared"], x, cfg, positions,
+                              attn_blocks, plain)
+        return x, kv, states
+
+    group = remat_layer(group, remat)
     for g in range(n_groups):
-        x = _mamba_run(layer_of(params["groups"], g), every, x, cfg, plain,
-                       g_states, remat)
-        x, (k, v) = shared(params["shared"], x, cfg, positions, attn_blocks,
-                           plain)
+        x, (k, v), states = group(x, layer_of(params["groups"], g))
         if return_cache:
+            g_states.extend(states)
             ks.append(k)
             vs.append(v)
     t_states = [] if return_cache and tail else None
     if tail:
-        x = _mamba_run(params["tail"], tail, x, cfg, plain, t_states,
-                       remat)
+        x = _mamba_run(params["tail"], tail, x, cfg, plain, t_states)
 
     x = apply_norm(x, params["final_norm"], cfg)
     if return_cache:

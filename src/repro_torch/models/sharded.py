@@ -15,9 +15,9 @@ oracle's operands (batch over the data axes, heads over "model", the KV
 sequence of a decode cache where the rules put it), runs the kernel op
 on each rank's local shard (the CUDA kernel on the card, its plain
 version on the CPU), and wraps the result back as a DTensor. A decode
-cache sharded along its sequence combines partial softmaxes across that
-mesh dim (flash-decoding), which only the CPU core does: on the card it
-raises.
+cache sharded along its sequence combines the ranks' partial outputs
+across that mesh dim by their log-sum-exps (flash-decoding,
+`combine_seq_shards`), on the CPU and on the card alike.
 
 Each core reports the JAX oracle's dot flops to the active cost probe
 (`count_flops`, installed by `launch/costs.py::StepProbe`): the band
@@ -373,20 +373,40 @@ def slab_attend(q, k_cache, v_cache, kv_len, *, logit_softcap=0.0,
                                  logit_softcap=logit_softcap, plain=plain)
 
 
+def combine_seq_shards(o, lse, mesh, seq_dims):
+    """Partial attention outputs over disjoint key ranges, one per rank of
+    the mesh dims `seq_dims`, into the output over all their keys
+    (flash-decoding's combine): o (..., hd) each rank's output over its
+    keys, lse (...) f32 the log-sum-exp of its scores. Weights w = exp(lse
+    - max over the ranks' lse), then sum(o w) / sum(w), in f32. A rank with
+    no live key (lse about -2.38e38, the finite mask) weighs 0 beside any
+    rank with one. The CPU core and the card's kernel core both end here."""
+    from torch.distributed._functional_collectives import all_reduce
+    m = lse
+    for md in seq_dims:
+        m = all_reduce(m, "max", (mesh, md))
+    w = torch.exp(lse - m)
+    num, den = o.float() * w[..., None], w
+    for md in seq_dims:
+        num = all_reduce(num, "sum", (mesh, md))
+        den = all_reduce(den, "sum", (mesh, md))
+    return num / torch.clamp(den, min=1e-37)[..., None]
+
+
 def decode_attend(q, k_cache, v_cache, kv_len, *, slot=None, k_new=None,
                   v_new=None, softcap=0.0, plain=False):
     """One query token per sequence over a slab cache: `decode_attend`
     on DTensors q (B, H, hd), caches (B, Smax, Hkv, hd) placed by the
     cache rules, kv_len (B,). With `slot` (B,) the new row k_new/v_new
-    (B, Hkv, hd) is written first, in place, on the rank that holds it.
+    (B, Hkv, hd) is written first, in place, on the rank whose shard holds
+    it.
 
     On the card each rank runs `attention.slab_attend` (the `paged_decode`
-    kernel) over its batch and head shard, after `paged_insert` of the
-    new rows; a cache sharded along Smax raises there. On the CPU each
-    rank attends its local keys in einsums and, where the cache is
-    sharded along Smax, combines the partial softmaxes over those mesh
-    dims (max, then sums)."""
-    from torch.distributed._functional_collectives import all_reduce
+    kernel) over its batch, head and sequence shard, after `paged_insert`
+    of the new rows; on the CPU it attends its local keys in einsums.
+    Where the cache is sharded along Smax, kv_len is made local (clamped
+    to the shard), and the ranks' outputs combine by their log-sum-exps
+    over those mesh dims (`combine_seq_shards`)."""
     from torch.distributed.tensor import Replicate, Shard
     rules = _rules()
     B, H, hd = q.shape
@@ -412,30 +432,40 @@ def decode_attend(q, k_cache, v_cache, kv_len, *, slot=None, k_new=None,
     sl = None if slot is None else _local(slot, pb, mesh)
     seq_dims = [md for md, p in enumerate(pc)      # mesh dims that split Smax
                 if isinstance(p, Shard) and p.dim == 1 and mesh.size(md) > 1]
-    count_flops(decode_flops(B, Smax, H, hd))
-    if kc.is_cuda:
-        if seq_dims:
-            raise NotImplementedError(
-                "a decode cache sharded along its sequence (mesh dims "
-                f"{seq_dims}) on the card: the paged_decode kernel has no "
-                "cross-rank softmax combine")
-        if sl is not None:
-            kp, vp, table = slab_pages(kc, vc)
-            page = slab_page(Smax)
-            pidx = torch.gather(table, 1, (sl // page).long()[:, None])[:, 0]
-            paged_insert_op(kp, vp, _local(k_new, pq), _local(v_new, pq),
-                            pidx, (sl % page).to(torch.int32), plain=plain)
-        o = attention.slab_attend(ql, kc, vc, lens, logit_softcap=softcap,
-                                  plain=plain)
-        return _wrap(o, mesh, pq, (B, H, hd))
     lo, hi = _shard_range(mesh, pc, 1, Smax)
+    count_flops(decode_flops(B, Smax, H, hd))
+    if sl is not None:
+        own = (sl >= lo) & (sl < hi)               # this shard holds the row
+        kn, vn = _local(k_new, pq).to(kc.dtype), _local(v_new, pq).to(kc.dtype)
+    if kc.is_cuda:
+        if sl is not None:
+            # a sequence whose row another rank holds rewrites its row 0
+            # with what it holds
+            loc = torch.where(own, sl - lo, 0)
+            if seq_dims:
+                bi = torch.arange(kc.shape[0], device=kc.device)
+                kn = torch.where(own[:, None, None], kn, kc[bi, 0])
+                vn = torch.where(own[:, None, None], vn, vc[bi, 0])
+            kp, vp, table = slab_pages(kc, vc)
+            page = slab_page(kc.shape[1])
+            pidx = torch.gather(table, 1, (loc // page).long()[:, None])[:, 0]
+            paged_insert_op(kp, vp, kn, vn, pidx,
+                            (loc % page).to(torch.int32), plain=plain)
+        lens_l = (lens - lo).clamp(0, hi - lo).to(torch.int32)
+        if not seq_dims:
+            o = attention.slab_attend(ql, kc, vc, lens_l,
+                                      logit_softcap=softcap, plain=plain)
+            return _wrap(o, mesh, pq, (B, H, hd))
+        o, lse = attention.slab_attend(ql, kc, vc, lens_l,
+                                       logit_softcap=softcap, plain=plain,
+                                       return_lse=True)
+        o = combine_seq_shards(o, lse, mesh, seq_dims)
+        return _wrap(o.to(q.dtype), mesh, pq, (B, H, hd))
     idx = torch.arange(lo, hi, device=kc.device)
     if sl is not None:
         hit = (idx[None, :] == sl[:, None])[..., None, None]   # (b, s, 1, 1)
-        kc.copy_(torch.where(hit, _local(k_new, pq)[:, None].to(kc.dtype),
-                             kc))
-        vc.copy_(torch.where(hit, _local(v_new, pq)[:, None].to(vc.dtype),
-                             vc))
+        kc.copy_(torch.where(hit, kn[:, None], kc))
+        vc.copy_(torch.where(hit, vn[:, None], vc))
     Hl, Hkvl = ql.shape[1], kc.shape[2]
     G = Hl // Hkvl
     f32 = torch.float32
@@ -446,16 +476,12 @@ def decode_attend(q, k_cache, v_cache, kv_len, *, slot=None, k_new=None,
     valid = idx[None, :] < lens[:, None]
     s = torch.where(valid[:, None, None, :], s, -2.3819763e38)
     m = s.amax(-1, keepdim=True)
-    for md in seq_dims:
-        m = all_reduce(m, "max", (mesh, md))
     p = torch.exp(s - m)
     l = p.sum(-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p, vc.to(f32))
-    for md in seq_dims:
-        l = all_reduce(l, "sum", (mesh, md))
-        o = all_reduce(o, "sum", (mesh, md))
-    o = (o / torch.clamp(l, min=1e-37)[..., None]).reshape(-1, Hl, hd)
-    return _wrap(o.to(q.dtype), mesh, pq, (B, H, hd))
+    o = torch.einsum("bkgs,bskh->bkgh", p, vc.to(f32)) / l[..., None]
+    if seq_dims:
+        o = combine_seq_shards(o, m[..., 0] + torch.log(l), mesh, seq_dims)
+    return _wrap(o.reshape(-1, Hl, hd).to(q.dtype), mesh, pq, (B, H, hd))
 
 
 def moe_shard_local(p, x, cfg, rules, capacity_factor: float, groups: int):

@@ -1040,6 +1040,48 @@ def test_flash_prefill_bwd_kernel(cuda, case, hd, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# the bf16 wgmma kernels' edges (PR 22's redesign): Sq and Skv off the
+# 64-row tiles, groups of 1, 2 and 8 (two query heads a dQ block), Sq < Skv
+# with a window, one q tile over many keys (dQ's walk cut in parts)
+BWD_EDGE_CASES = [
+    # (B, H, Hkv, Sq, Skv, causal, window, softcap)
+    (1, 8, 8, 77, 77, True, 0, 0.0),          # group of 1
+    (2, 4, 2, 191, 191, True, 0, 0.0),        # group of 2
+    (2, 16, 2, 400, 400, True, 0, 0.0),       # group of 8, 2 heads a dQ block
+    (1, 4, 2, 70, 300, True, 100, 0.0),       # Sq < Skv, window
+    (1, 8, 8, 64, 1024, False, 0, 0.0),       # cross: dQ's walk in 8 parts
+    (1, 2, 1, 33, 1000, False, 0, 30.0),      # one q tile, cap, group of 2
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("case", BWD_EDGE_CASES)
+def test_flash_prefill_bwd_kernel_edges(cuda, case, hd, dtype):
+    """As `test_flash_prefill_bwd_kernel`, over the edges of the bf16
+    wgmma kernels' tiles, warpgroups and dQ split (and the same cases on
+    the f32 kernels): each gradient within `BWD_BOUNDS`, one call counted
+    a call, identical bits from a second call."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref
+    B, H, Hkv, Sq, Skv = case[:5]
+    if dtype == torch.bfloat16:
+        sm = torch.cuda.get_device_properties(0).multi_processor_count
+        qh = fk.bwd_warpgroups(B, H, Hkv, Sq, hd, sm)[1]
+        if case == BWD_EDGE_CASES[2]:
+            assert qh == 2
+        if case == BWD_EDGE_CASES[4]:
+            assert fk.bwd_dq_split(B, H, Sq, Skv, qh, hd, sm) > 1
+    rng = np.random.default_rng(hd + case[3] + 7)
+    args, kw = _bwd_inputs(rng, cuda, dtype, case, hd)
+    before = tk.launch_counts()["flash_prefill_bwd"]
+    got = fk.flash_prefill_bwd(*args, **kw)
+    again = fk.flash_prefill_bwd(*args, **kw)
+    assert tk.launch_counts()["flash_prefill_bwd"] == before + 2
+    _grads_close(got, flash_prefill_bwd_ref(*args, **kw), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hd", [64, 112, 128, 256])
 @pytest.mark.parametrize("case", BWD_CASES)
@@ -1318,6 +1360,73 @@ def test_attention_kernels_empty_input_launch_nothing(cuda, dtype):
     assert torch.equal(kp, k0) and torch.equal(vp, v0)
     torch.cuda.synchronize()
     assert tk.launch_counts() == before
+
+
+def test_sequence_sharded_decode_through_the_kernel(cuda, tmp_path):
+    """`models/sharded.py::decode_attend` on 4 gloo ranks over CUDA tensors
+    of one card: the cache (B=2, Smax=256, 2 kv heads, hd 64) split 4 ways
+    along its sequence, the new rows landing on ranks 0 and 2, rank 3
+    (and ranks 1-3 of sequence 0) holding no live key. Each rank runs
+    `paged_insert` and `paged_decode` over its shard with its local
+    lengths, and the ranks combine by the kernel's log-sum-exp
+    (`combine_seq_shards`). Equal to the unsharded kernel on the whole
+    cache with the rows written: f32 within 5e-5, bf16 within 3e-2, the
+    written caches bit for bit."""
+    from torch_sharded_worker import (decode_cuda_expected,
+                                      decode_cuda_inputs, run_worker)
+    d = decode_cuda_inputs()
+    np.savez(tmp_path / "in.npz", **d)
+    proc = run_worker(tmp_path / "in.npz", tmp_path / "out.npz",
+                      "decode_cuda")
+    assert proc.wait(timeout=600) == 0
+    out = dict(np.load(tmp_path / "out.npz"))
+    assert "Shard(dim=1)" in list(out["cu_placements"])
+    for dn, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        before = tk.launch_counts()["paged_decode"]
+        want, kc, vc = decode_cuda_expected(d, dtype, cuda)
+        assert tk.launch_counts()["paged_decode"] == before + 1
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(out[f"cu_{dn}_kc"],
+                                      kc.float().cpu().numpy())
+        np.testing.assert_array_equal(out[f"cu_{dn}_vc"],
+                                      vc.float().cpu().numpy())
+        np.testing.assert_allclose(out[f"cu_{dn}_o"],
+                                   want.float().cpu().numpy(),
+                                   **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_returns_the_log_sum_exp(cuda, dtype):
+    """`paged_decode(return_lse=True)` against the plain version's
+    log-sum-exp of each row's scaled, capped live scores and its output,
+    over one split and several, a group of 24 over one kv head (slices of
+    16 and 8, each a contiguous copy), a padded head dim, and a row with
+    no live key (about -2.38e38, weight 0 in a combine); the output is the
+    same bits with the buffer as without."""
+    from repro_torch.kernels.paged_decode.kernel import paged_decode
+    rng = np.random.default_rng(24)
+    for B, H, Hkv, hd, page, pps, cap in ((3, 8, 2, 64, 16, 4, 0.0),
+                                          (2, 4, 1, 128, 16, 64, 30.0),
+                                          (2, 24, 1, 72, 16, 8, 0.0)):
+        q = _t(rng, cuda, dtype, B, H, hd)
+        kp, vp = (_t(rng, cuda, dtype, B * pps, page, Hkv, hd)
+                  for _ in range(2))
+        table = torch.arange(B * pps, dtype=torch.int32,
+                             device=cuda).view(B, pps)
+        lens = torch.tensor([0] + [pps * page - 5] * (B - 1),
+                            dtype=torch.int32, device=cuda)
+        o, lse = paged_decode(q, kp, vp, table, lens, softcap=cap,
+                              return_lse=True)
+        want_o, want = paged_decode_ref(q, kp, vp, table, lens,
+                                        softcap=cap, return_lse=True)
+        _close(o[1:], want_o[1:], dtype)
+        assert lse.shape == (B, H) and lse.dtype == torch.float32
+        assert torch.equal(o, paged_decode(q, kp, vp, table, lens,
+                                           softcap=cap))
+        assert (lse[0] < -1e38).all() and (want[0] < -1e38).all()
+        np.testing.assert_allclose(lse[1:].cpu().numpy(),
+                                   want[1:].cpu().numpy(),
+                                   atol=2e-4, rtol=2e-5)
 
 
 def test_sharded_cores_launch_the_kernels_on_each_shard(cuda, tmp_path):

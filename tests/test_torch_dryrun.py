@@ -94,7 +94,8 @@ def test_committed_jax_flops_are_current():
     with open(FLOPS_FILE) as f:
         committed = json.load(f)["dot_flops"]
     assert {"yi-6b/train_4k", "yi-6b/prefill_32k", "yi-6b/decode_32k",
-            "mamba2-2.7b/long_500k"} <= set(committed)
+            "mamba2-2.7b/long_500k", "zamba2-7b/train_4k",
+            "seamless-m4t-large-v2/train_4k"} <= set(committed)
     for cell, want in committed.items():
         arch, shape = cell.split("/")
         got = jax_cell_costs(jx_get_config(arch), jx_get_shape(shape))

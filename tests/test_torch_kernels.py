@@ -380,6 +380,39 @@ def test_flash_heads_per_block_is_a_function_of_shapes():
     assert hpb(8, 8, 2, 1024, hd=256) == 1
 
 
+def test_bwd_warpgroups_is_a_function_of_shapes():
+    """The bf16 backward's dK/dV kernel takes two consumer warpgroups
+    where a block's walk has at least two (query head, 64-row q tile)
+    items, one otherwise (seamless-m4t's cross-attention: 64 queries, a
+    group of 1); its dQ kernel serves query heads as the forward does.
+    Head dims above 128 run the mma.sync kernels, which take neither."""
+    bw = flash_kernel.bwd_warpgroups
+    assert bw(4, 32, 4, 1024) == (2, 2)       # yi-6b training
+    assert bw(1, 16, 16, 1024, 64) == (2, 1)  # seamless encoder
+    assert bw(1, 16, 16, 64, 64) == (1, 1)    # seamless cross
+    assert bw(1, 32, 32, 1024, 112) == (2, 1)  # zamba2-7b (hd 112)
+    assert bw(1, 16, 16, 65, 64) == (2, 1)    # two q tiles
+    assert bw(1, 8, 4, 64, 128) == (2, 1)     # a group of 2, 4 blocks
+    assert bw(1, 4, 1, 1024, 256) == (1, 1)   # gemma3-1b
+    assert bw(4, 32, 4, 1024, sm_count=2000) == (2, 1)
+
+
+def test_bwd_dq_split_is_a_function_of_shapes():
+    """The bf16 dQ kernel cuts each q tile's kv walk where its grid fills
+    less than half the SMs, into as many parts as fill the card, each at
+    least two 64-key tiles: seamless-m4t's cross-attention (64 queries,
+    16 heads, 1024 frames) 8 ways, the training shapes not at all."""
+    sp = flash_kernel.bwd_dq_split
+    assert sp(1, 16, 64, 1024, 1) == 8         # seamless cross
+    assert sp(4, 32, 1024, 1024, 2) == 1       # yi-6b training
+    assert sp(1, 16, 1024, 1024, 1) == 1       # seamless encoder
+    assert sp(1, 32, 1024, 1024, 1) == 1       # zamba2-7b
+    assert sp(1, 4, 70, 200, 1) == 2           # 8 blocks, 4 kv tiles
+    assert sp(1, 4, 64, 100, 1) == 1           # 2 kv tiles: one part
+    assert sp(1, 16, 64, 1024, 1, hd=256) == 1  # the mma.sync instance
+    assert sp(1, 16, 64, 1024, 1, sm_count=64) == 4
+
+
 def test_bhs_strides_of_size_one_dims_are_16_byte_units():
     """A tensor map wants every stride in 16-byte units; PyTorch leaves
     the stride of a dim of size 1 free, so it is replaced by one that

@@ -9,8 +9,9 @@ collectives move data, against the JAX package's oracles:
   * `ssd_scan` against `ssd_chunked`, the B/C groups narrowed to each
     rank's heads;
   * `decode_attend` against JAX's `decode_attend` over a cache sharded
-    along its sequence (the flash-decoding max / sum combine), the new
-    row written in place first;
+    along its sequence (`combine_seq_shards`, the flash-decoding combine
+    the card's core shares), the new row written in place first, also
+    with ranks that hold no live key;
   * yi-6b-smoke's loss and gradients with params, batch and step sharded
     by the train rules against the same on plain tensors (the debug mesh),
     and one step of the launcher's `_sharded_step` against one debug step.
@@ -43,8 +44,11 @@ FLASH_WINDOW = {"a": 0, "b": 8, "c": 0}
 # (b, S, nh, hd, G, N) of the scan cases
 SSD = {"a": (2, 32, 4, 8, 2, 8), "b": (1, 32, 8, 8, 2, 8)}
 # (B, Smax, H, Hkv, hd, pos) of the decode cases
-DECODE = {"a": (1, 16, 4, 2, 8, [10]), "b": (2, 16, 4, 1, 8, [5, 19])}
-DECODE_SOFTCAP = {"a": 0.0, "b": 30.0}
+# c: Smax 4 ways over a (1, 4) mesh; sequence 0's keys all on rank 0
+# (ranks 1-3 hold no live key), sequence 1's new row on rank 2, rank 3 empty
+DECODE = {"a": (1, 16, 4, 2, 8, [10]), "b": (2, 16, 4, 1, 8, [5, 19]),
+          "c": (2, 16, 4, 2, 8, [2, 9])}
+DECODE_SOFTCAP = {"a": 0.0, "b": 30.0, "c": 0.0}
 
 
 def _inputs():

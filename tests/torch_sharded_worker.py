@@ -8,7 +8,9 @@ PARTs: `cores` (the shard-local attention, decode and scan cores of
 `models/sharded.py` on (2, 2) and (1, 4) data x model meshes), `moe`
 (`moe_apply_shard_map` and `moe_apply_grouped` on DTensors), `train`
 (yi-6b-smoke's loss, gradients and one step, sharded by the train rules
-and on plain tensors). Inputs come from IN.npz; rank 0 writes every
+and on plain tensors), `decode_cuda` (the decode core through the kernels
+on CUDA tensors of one card, the cache split 4 ways along its sequence;
+`tests/test_torch_cuda.py`). Inputs come from IN.npz; rank 0 writes every
 result, gathered whole, to OUT.npz. The ranks meet through a file store
 beside OUT.npz, so no port is opened.
 """
@@ -40,9 +42,9 @@ def run_worker(inp, outp, parts: str):
                              str(inp), str(outp), parts], env=worker_env())
 
 
-def _mesh(shape):
+def _mesh(shape, device_type="cpu"):
     from repro_torch.launch.mesh import make_mesh
-    return make_mesh(shape, ("data", "model"), "cpu")
+    return make_mesh(shape, ("data", "model"), device_type)
 
 
 def _dt(x, mesh, placements=None):
@@ -106,11 +108,13 @@ def part_cores(d, out):
             y, h = sharded.ssd_scan(*args[:6], chunk=8, h0=args[6])
         out[f"ssd_{case}_y"], out[f"ssd_{case}_h"] = _whole(y), _whole(h)
     # the decode: the cache sharded along Smax (a: over "data", the heads
-    # over "model"; b: the batch over "data", Smax over "model"), the new
-    # row written in place first
-    mesh = meshes["22"]
-    rules = make_rules(mesh, "serve")
-    for case, softcap in (("a", 0.0), ("b", 30.0)):
+    # over "model"; b: the batch over "data", Smax over "model"; c: Smax
+    # 4 ways over "model", with ranks that hold no live key), the new row
+    # written in place first
+    for case, softcap, mesh_key in (("a", 0.0, "22"), ("b", 30.0, "22"),
+                                    ("c", 0.0, "14")):
+        mesh = meshes[mesh_key]
+        rules = make_rules(mesh, "serve")
         kc, vc = d[f"dec_{case}_kc"], d[f"dec_{case}_vc"]
         pc = rules.placements(("kv_batch", "kv_seq", "kv_heads", None),
                               kc.shape)
@@ -126,6 +130,71 @@ def part_cores(d, out):
         out[f"dec_{case}"] = _whole(o)
         out[f"dec_{case}_kc"], out[f"dec_{case}_vc"] = _whole(kc), \
             _whole(vc)
+
+
+def decode_cuda_inputs(seed=23):
+    """Inputs of `part_decode_cuda` (keys prefixed `cu_`): B=2, Smax=256,
+    8 query heads over 2 kv heads, hd 64; the new rows at positions 39 and
+    149, so with Smax split 4 ways they land on ranks 0 and 2, and rank 3
+    (ranks 1-3 for sequence 0) holds no live key."""
+    rng = np.random.default_rng(seed)
+    B, Smax, H, Hkv, hd = 2, 256, 8, 2, 64
+    pos = np.array([39, 149], np.int32)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return {"cu_q": f(B, H, hd), "cu_kc": f(B, Smax, Hkv, hd),
+            "cu_vc": f(B, Smax, Hkv, hd), "cu_kn": f(B, Hkv, hd),
+            "cu_vn": f(B, Hkv, hd), "cu_lens": pos + 1, "cu_slot": pos}
+
+
+def decode_cuda_expected(d, dtype, device):
+    """The unsharded kernel's output over `decode_cuda_inputs`' whole cache
+    with the new rows written, and the written caches."""
+    from repro_torch.models.attention import slab_attend
+    q, kc, vc, kn, vn = (torch.from_numpy(d[f"cu_{n}"]).to(dtype).to(device)
+                         for n in ("q", "kc", "vc", "kn", "vn"))
+    bi, pos = torch.arange(q.shape[0]), torch.from_numpy(d["cu_slot"]).long()
+    kc[bi, pos] = kn
+    vc[bi, pos] = vn
+    lens = torch.from_numpy(d["cu_lens"]).to(device)
+    return slab_attend(q, kc, vc, lens), kc, vc
+
+
+def part_decode_cuda(d, out):
+    """`decode_attend` through the kernels on CUDA tensors of one card:
+    each rank's shard of a cache split 4 ways along Smax, the ranks'
+    outputs combined over gloo; f32 and bf16."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.partitioning import make_rules
+    from repro_torch.models import sharded
+    torch.cuda.set_device(0)
+    mesh = _mesh((1, 4), "cuda")
+    rules = make_rules(mesh, "serve")
+    for dn, dtype in (("f32", F32), ("bf16", torch.bfloat16)):
+        kc, vc = (torch.as_tensor(d[f"cu_{n}"]).to(dtype)
+                  for n in ("kc", "vc"))
+        pc = rules.placements(("kv_batch", "kv_seq", "kv_heads", None),
+                              kc.shape)
+        out["cu_placements"] = np.array([repr(p) for p in pc])
+        kc, vc = _dt(kc.cuda(), mesh, pc), _dt(vc.cuda(), mesh, pc)
+        q, kn, vn = (_dt(torch.as_tensor(d[f"cu_{n}"]).to(dtype).cuda(),
+                         mesh) for n in ("q", "kn", "vn"))
+        lens, slot = (_dt(torch.as_tensor(d[f"cu_{n}"]).cuda(), mesh)
+                      for n in ("lens", "slot"))
+        stack, _ = _ctx(rules)
+        with stack:
+            o = sharded.decode_attend(q, kc, vc, lens, slot=slot, k_new=kn,
+                                      v_new=vn)
+        torch.cuda.synchronize()
+        cpu = _mesh((1, 4))
+        for name, t in (("o", o), ("kc", kc), ("vc", vc)):
+            # gathered whole on the CPU: only the combine's collectives
+            # take CUDA tensors
+            whole = DTensor.from_local(t.to_local().float().cpu(),
+                                       cpu.device_mesh, t.placements,
+                                       run_check=False).full_tensor()
+            out[f"cu_{dn}_{name}"] = whole.numpy()
 
 
 def part_moe(d, out):
@@ -221,7 +290,8 @@ def _flat(tree, prefix=""):
     return {} if tree is None else {prefix[:-1]: tree}
 
 
-PARTS = {"cores": part_cores, "moe": part_moe, "train": part_train}
+PARTS = {"cores": part_cores, "moe": part_moe, "train": part_train,
+         "decode_cuda": part_decode_cuda}
 
 
 def work(rank, inp, outp, parts):
