@@ -152,7 +152,9 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    mamba2-2.7b's training shape (b=2, S=2048 in 8 chunks of 256, nh 80,
    hd 64, G 1, N 128), zamba2-7b's (nh 112, N 64) and a small shape with
    G=2, `h0` and `dh_final` given and a chunk of 40, timed against the
-   plain version (no library call computes it); (b) mamba2-2.7b at full
+   plain version (no library call computes it), with the ptxas line of
+   its instances and, at the two training shapes, each of its seven
+   launches' device time; (b) mamba2-2.7b at full
    width and depth, bf16 compute, f32 params and AdamW, remat, B=2 x
    S=2048 of `SyntheticTokens`: one step's loss, grad_norm and every
    gradient leaf through the kernels against the plain versions
@@ -2759,10 +2761,12 @@ BWD_LAUNCHES = (("dQ sum", "flash_prefill_bwd_dq_sum"),
                 ("dQ", "flash_prefill_bwd_dq"))
 
 
-def bwd_launch_us(fn, calls=5):
-    """Device microseconds of each of the backward's launches (D, dK/dV,
-    dQ and, where dQ's walk is split, the sum of its parts), the mean over
-    the launches torch.profiler recorded in `calls` calls of `fn`."""
+def bwd_launch_us(fn, calls=5, launches=BWD_LAUNCHES):
+    """Device microseconds of each of a backward's launches (by default
+    `flash_prefill_bwd`'s: D, dK/dV, dQ and, where dQ's walk is split, the
+    sum of its parts), the mean over the launches torch.profiler recorded
+    in `calls` calls of `fn`; `launches` maps labels to kernel names,
+    first match wins."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2776,7 +2780,7 @@ def bwd_launch_us(fn, calls=5):
         dev = getattr(e, "device_time_total", None)
         if dev is None:
             dev = e.cuda_time_total
-        for label, key in BWD_LAUNCHES:
+        for label, key in launches:
             if key in e.key:
                 out[label] = round(dev / max(e.count, 1), 2)
                 break
@@ -3190,6 +3194,14 @@ SSD_BWD_SHAPES = (
     ("zamba2_train", 2, 2048, 112, 64, 1, 64, 256, False),
     ("small_g2_h0", 2, 200, 8, 32, 2, 32, 40, True))
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+# the seven launches of csrc/ssd_scan_bwd.cu by kernel name
+SSD_BWD_LAUNCHES = (("dstate", "ssd_scan_bwd_dstate"),
+                    ("pass", "ssd_scan_bwd_pass"),
+                    ("source", "ssd_scan_bwd_src"),
+                    ("head", "ssd_scan_bwd_head"),
+                    ("query", "ssd_scan_bwd_qry"),
+                    ("scan", "ssd_scan_bwd_scan"),
+                    ("reduce", "ssd_scan_bwd_reduce"))
 SSM_TRAIN_B, SSM_TRAIN_S = 2, 2048
 # zamba2-7b's 81 layers (6.75 B parameters, ~108 GB of f32 params, grads
 # and moments) cut to 2 groups of 6 and a tail of 2: two applications of
@@ -3219,14 +3231,53 @@ def ssd_bwd_flops_bytes(b, S, nh, hd, G, N, Q, es, given):
     return flops, nbytes
 
 
+def ssd_bwd_ptxas(build_log: Path) -> str:
+    """Registers and spill bytes of `ssd_scan_bwd`'s instances at the
+    training shapes (hd 64, N 64 / 128: `<dtype,HD,NP>`), the range over
+    all its instances, and any "wgmma serialized" note (`-Xptxas -v` of
+    the build)."""
+    if not build_log.exists():
+        return "ptxas ssd_scan_bwd: no build log (library reused)"
+    seen, notes, entry, spill = {}, 0, None, "0"
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = None
+            if "ssd_scan_bwd_" in name:
+                kind = name.split("ssd_scan_bwd_")[-1].split("_kernel")[0]
+                ty = "bf16" if "bfloat16" in name else "f32"
+                nums = [t.split("E")[0] for t in name.split("Li")[1:]]
+                entry = f"{kind}<{','.join([ty] + nums)}>" \
+                    if "kernelI" in name else kind
+        elif entry and "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split()[-1]
+        elif entry and "Used" in line and "registers" in line:
+            seen[entry] = (int(line.split("Used")[1].split()[0]), int(spill))
+            entry = None
+        if "wgmma" in line and "serializ" in line and "ssd_scan_bwd" in line:
+            notes += 1
+    if not seen:
+        return "ptxas ssd_scan_bwd: no instance in the build log"
+    shown = [f"{k} {r} regs {sp} spill" for k, (r, sp) in seen.items()
+             if ",64," in k or k.startswith(("pass", "scan", "reduce"))]
+    regs = [r for r, _ in seen.values()]
+    spilling = [k for k, (_, sp) in seen.items() if sp]
+    return (f"ptxas ssd_scan_bwd: {'; '.join(shown)}; all {len(seen)} "
+            f"instances {min(regs)}..{max(regs)} regs, spilling "
+            f"{spilling or 'none'}, wgmma serialized notes {notes}")
+
+
 def ssd_bwd_kernel_phase(dtypes):
     """15a. `ssd_scan_bwd` against `ssd_scan_bwd_ref` at `SSD_BWD_SHAPES`
     (the forward kernel's kept scratch as its input), f32 and bf16; two
     identical calls must give identical bits. No PyTorch call computes the
-    scan's gradient, so there is no library yardstick."""
+    scan's gradient, so there is no library yardstick. At the training
+    shapes, each of the seven launches' device time (torch.profiler)."""
     import torch
+    from repro_torch.kernels.build import BUILD_DIR
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    log(ssd_bwd_ptxas(BUILD_DIR / "build.log"))
     results = {}
     for dtype in dtypes:
         dn = dtype_name(dtype)
@@ -3284,6 +3335,11 @@ def ssd_bwd_kernel_phase(dtypes):
                 library_ms=None, library="none", bytes=nbytes, flops=flops)
             r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dn)
             r["achieved"] = achieved(r)
+            if name.endswith("_train"):
+                r["launch_us"] = bwd_launch_us(kern,
+                                               launches=SSD_BWD_LAUNCHES)
+                log(f"profile ssd_scan_bwd {name} {dn}: launches us "
+                    f"{r['launch_us']}")
             rows[f"ssd_scan_bwd_{name}"] = r
             shown = {k: (f"{e:.3e}", f"{sc:.3e}") for k, (e, sc) in
                      errs.items()}

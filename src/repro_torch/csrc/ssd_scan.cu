@@ -50,7 +50,9 @@
 // (4 rows x 4 or 8 columns a thread); TF32 would break the 3e-4
 // tolerance. In bf16, C.B^T (exact: bf16 inputs, f32 accumulation) and
 // the phase-4 products run on the tensor cores (mma.sync m16n8k16), the
-// f32 operands h_in and P split into bf16 pairs hi + lo (below).
+// f32 operands h_in and P split into bf16 pairs hi + lo (below;
+// `split_bf16` and the warp tile `tile_mma` are in ssd_common.cuh, which
+// the gradient shares).
 
 #include "attn_mma.cuh"
 #include "ssd_common.cuh"
@@ -478,37 +480,11 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1) ssd_scan_out_kernel(
 // + hd / 2 - 1. Shared tiles are bf16 rows padded by 16 bytes, so the 8
 // row addresses of every ldmatrix hit 8 bank groups.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi,
-                                           __nv_bfloat16& lo) {
-  hi = __float2bfloat16(v);
-  lo = __float2bfloat16(v - __bfloat162float(hi));
-}
-
 size_t out_mma_smem(int hd, int N) {
   return ((size_t)TILE * (N + 8) + 2 * (size_t)N * (hd + 8) +
           2 * (size_t)TILE * (TILE + 8) + (size_t)TILE * (hd + 8)) *
              sizeof(__nv_bfloat16) +
          2 * MAX_Q * sizeof(float);
-}
-
-// acc (16 rows x NTW n-tiles of the warp) += A (16 x 16 at `a`, row stride
-// lda) . B (16 x 8 NTW at `bk`, [k][n] rows of stride ldb)
-template <int NTW>
-__device__ __forceinline__ void warp_mma(float (&acc)[NTW][4],
-                                         const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* bk, int ldb) {
-  const int lane = threadIdx.x % 32;
-  uint32_t af[4];
-  attn::ldsm_x4(af, a + (lane % 16) * lda + (lane / 16) * 8);
-  const __nv_bfloat16* br =
-      bk + (((lane / 8) % 2) * 8 + lane % 8) * ldb + (lane / 16) * 8;
-#pragma unroll
-  for (int n = 0; n < NTW; n += 2) {
-    uint32_t bf[4];
-    attn::ldsm_x4_t(bf, br + n * 8);
-    attn::mma_bf16(acc[n], af, bf[0], bf[1]);
-    attn::mma_bf16(acc[n + 1], af, bf[2], bf[3]);
-  }
 }
 
 template <int HD>
@@ -582,8 +558,10 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
       // carried-in state: exp(a_cum[t]) * C_t . h_in^T
       for (int kk = 0; kk < N / 16; ++kk) {
         const bf16* a = Cs + r0 * CS + kk * 16;
-        warp_mma<NTW>(acc, a, CS, Hh + kk * 16 * HS + n0, HS);
-        warp_mma<NTW>(acc, a, CS, Hl + kk * 16 * HS + n0, HS);
+        tile_mma<NTW, false, true, false, false>(
+            acc, a, CS, 0, Hh + kk * 16 * HS + n0, HS, 0, 16);
+        tile_mma<NTW, false, true, false, false>(
+            acc, a, CS, 0, Hl + kk * 16 * HS + n0, HS, 0, 16);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -623,8 +601,10 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
 #pragma unroll
       for (int kt = 0; kt < TILE / 16; ++kt) {
         const bf16* xk = Xs + kt * 16 * XS + n0;
-        warp_mma<NTW>(acc, Ph + r0 * PS + kt * 16, PS, xk, XS);
-        warp_mma<NTW>(acc, Pl + r0 * PS + kt * 16, PS, xk, XS);
+        tile_mma<NTW, false, true, false, false>(
+            acc, Ph + r0 * PS + kt * 16, PS, 0, xk, XS, 0, 16);
+        tile_mma<NTW, false, true, false, false>(
+            acc, Pl + r0 * PS + kt * 16, PS, 0, xk, XS, 0, 16);
       }
       __syncthreads();      // P, x reloaded; ac, h_in^T for the next head
     }

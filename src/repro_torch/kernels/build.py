@@ -45,7 +45,7 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                  _I, _I, _I, _I, _I, _I, _P, _P],
-    "ssd_scan_bwd": [_I, _I] + [_P] * 24 + [_I] * 6 + [_P],
+    "ssd_scan_bwd": [_I, _I] + [_P] * 29 + [_I] * 8 + [_P, _P],
 }
 
 

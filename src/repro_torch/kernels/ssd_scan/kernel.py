@@ -10,9 +10,11 @@ counts nothing.
 
 `ssd_scan_bwd` wraps `csrc/ssd_scan_bwd.cu`, the gradient, from what the
 forward kept (`keep_scratch=True`: each chunk's carried-in state, a_cum
-and C.B^T); each call (four launches: chunk state gradients, reverse
-state passing, chunk gradients, reductions) adds one to
-`ssd_scan_bwd.launches`, and an empty input none.
+and C.B^T); each call (seven launches, `ssd_bwd_plan`: chunk state
+gradients, reverse state passing, the source side of each chunk by head
+blocks, its head side by heads, its query side by head blocks, the scan of
+d a_cum, the fixed-order sums) adds one to `ssd_scan_bwd.launches`, and
+an empty input none.
 """
 from __future__ import annotations
 
@@ -86,18 +88,24 @@ class SsdPlan:
                 tuple(range(x * hb, (x + 1) * hb)))
 
 
-def ssd_plan(b: int, S: int, nh: int, hd: int, G: int, N: int, chunk: int,
-             sm_count: int = 132) -> SsdPlan:
-    """Heads per chunk-output block: the most (up to 8) that divide a
-    group's heads and still leave a block for every SM."""
-    nc = S // chunk
-    nqt = -(-chunk // TILE)
+def heads_per_block(b: int, nc: int, nqt: int, nh: int, G: int,
+                    sm_count: int) -> int:
+    """The most heads (up to 8) that divide a group's heads and still leave
+    a block for every SM, a block serving one (batch, chunk, 64-row tile,
+    head block); 1 where none does."""
     rep = nh // G
-    hb = 1
     for d in range(min(rep, MAX_HEADS_PER_BLOCK), 0, -1):
         if rep % d == 0 and b * nc * nqt * (nh // d) >= sm_count:
-            hb = d
-            break
+            return d
+    return 1
+
+
+def ssd_plan(b: int, S: int, nh: int, hd: int, G: int, N: int, chunk: int,
+             sm_count: int = 132) -> SsdPlan:
+    """Heads per chunk-output block by `heads_per_block`."""
+    nc = S // chunk
+    nqt = -(-chunk // TILE)
+    hb = heads_per_block(b, nc, nqt, nh, G, sm_count)
     return SsdPlan(
         chunks=nc, q_tiles=nqt, heads_per_block=hb,
         grid_state=(nc, nh, b),
@@ -106,6 +114,122 @@ def ssd_plan(b: int, S: int, nh: int, hd: int, G: int, N: int, chunk: int,
         grid_out=(nh // hb, nc * b, nqt),
         states_shape=(b, nc, nh, N, hd), acum_shape=(b, nh, S),
         cb_shape=(b, nc, G, nqt * TILE, nqt * TILE))
+
+
+@dataclass(frozen=True)
+class SsdBwdPlan:
+    """The seven launches of one `ssd_scan_bwd` call, from shapes alone
+    (grids as the C entry launches them; `src_block`, `head_block` and
+    `qry_block` state how launches 3-5 read their block index), and the
+    f32 scratch each shape needs. hb = `heads_per_block`, nhb = nh / hb head blocks, QP the
+    chunk rounded up to 64.
+
+    1. dstate, grid `grid_dstate` = (nc, nh, b): G_c into `dstates_shape`
+       (the forward's states layout, [n][d]).
+    2. reverse pass, grid `grid_pass` = (ceil(hd N / 256), nh, b): one
+       thread per state element; G_c becomes dh_out[c], and each block
+       writes its part of the decay's dot into `decay_shape` (b, nh, nc,
+       blocks).
+    3. source side, grid `grid_src` = (nhb, nc b, q_tiles): block (x, y,
+       z) serves head block x of chunk y % nc, batch y // nc, source tile
+       z (tile 0, with the most query tiles after it, first). It writes
+       the head block's summed dCB tiles (`dcb_shape`, [s][t]; in bf16 two
+       bf16 planes in the same bytes), its rows of dB (`parts_shape`,
+       (b, S, nhb, N)) and row vectors (`vecs_shape`: the rowsum of dCB o
+       CB by source tile, then colsum, q, sum_d d xdt x and y_off, QP
+       each).
+    4. head side, grid `grid_head` = (q_tiles, nh, nc b): block (x, y, z)
+       serves source tile x of head y, chunk z % nc, batch z // nc (the
+       tiles that read one head's dS run together): dx, q, sum_d d xdt x
+       and dy . x by source tile (`dyx_shape`).
+    5. query side, grid `grid_qry` = (q_tiles, nhb, nc b): block (x, y,
+       z) serves query tile q_tiles - 1 - x (the most source tiles first)
+       of head block y: its rows of dC (`parts_shape`) and y_off.
+    6. scan, grid `grid_scan` = (nh, nc, b): ddt and the chunk's parts of
+       dA and dD (`ad_shape`).
+    7. reduce, grid `grid_reduce`: dB, dC over each group's head blocks,
+       dA, dD over the (batch, chunk) parts.
+    """
+    chunks: int
+    q_tiles: int
+    heads_per_block: int
+    grid_dstate: Tuple[int, int, int]
+    grid_pass: Tuple[int, int, int]
+    grid_src: Tuple[int, int, int]
+    grid_head: Tuple[int, int, int]
+    grid_qry: Tuple[int, int, int]
+    grid_scan: Tuple[int, int, int]
+    grid_reduce: Tuple[int, int, int]
+    dstates_shape: Tuple[int, ...]
+    split_shape: Tuple[int, ...]
+    decay_shape: Tuple[int, ...]
+    dcb_shape: Tuple[int, ...]
+    vecs_shape: Tuple[int, ...]
+    dyx_shape: Tuple[int, ...]
+    parts_shape: Tuple[int, ...]
+    ad_shape: Tuple[int, ...]
+
+    @property
+    def grids(self):
+        return (self.grid_dstate, self.grid_pass, self.grid_src,
+                self.grid_head, self.grid_qry, self.grid_scan,
+                self.grid_reduce)
+
+    def src_block(self, x: int, y: int, z: int):
+        """(batch, chunk, source tile, heads) of source-side block (x, y,
+        z)."""
+        hb = self.heads_per_block
+        return (y // self.chunks, y % self.chunks, z,
+                tuple(range(x * hb, (x + 1) * hb)))
+
+    def head_block(self, x: int, y: int, z: int):
+        """(batch, chunk, source tile, head) of head-side block (x, y,
+        z)."""
+        return z // self.chunks, z % self.chunks, x, y
+
+    def qry_block(self, x: int, y: int, z: int):
+        """(batch, chunk, query tile, heads) of query-side block (x, y,
+        z)."""
+        hb = self.heads_per_block
+        return (z // self.chunks, z % self.chunks, self.q_tiles - 1 - x,
+                tuple(range(y * hb, (y + 1) * hb)))
+
+    def scratch_shapes(self):
+        """Every f32 scratch tensor of a call, by its C name."""
+        return dict(dstates=self.dstates_shape, dsplit=self.split_shape,
+                    hsplit=self.split_shape, decay=self.decay_shape,
+                    dcb=self.dcb_shape, vecs=self.vecs_shape,
+                    dyx=self.dyx_shape, dBp=self.parts_shape,
+                    dCp=self.parts_shape, pA=self.ad_shape,
+                    pD=self.ad_shape)
+
+
+def ssd_bwd_plan(b: int, S: int, nh: int, hd: int, G: int, N: int,
+                 chunk: int, sm_count: int = 132,
+                 bf16: bool = False) -> SsdBwdPlan:
+    """`bf16`: the call's dtype is bf16, whose dS and h_in go to the
+    tensor cores as bf16 pairs (`split_shape` is the states' then, else
+    empty)."""
+    nc = S // chunk
+    nqt = -(-chunk // TILE)
+    QP = nqt * TILE
+    hb = heads_per_block(b, nc, nqt, nh, G, sm_count)
+    nhb = nh // hb
+    npass = -(-hd * N // PASS_THREADS)
+    reduce_work = max(b * S * G * N, nh)
+    return SsdBwdPlan(
+        chunks=nc, q_tiles=nqt, heads_per_block=hb,
+        grid_dstate=(nc, nh, b), grid_pass=(npass, nh, b),
+        grid_src=(nhb, nc * b, nqt), grid_head=(nqt, nh, nc * b),
+        grid_qry=(nqt, nhb, nc * b),
+        grid_scan=(nh, nc, b),
+        grid_reduce=(-(-reduce_work // PASS_THREADS), 1, 1),
+        dstates_shape=(b, nc, nh, N, hd),
+        split_shape=(b, nc, nh, N, hd) if bf16 else (0,),
+        decay_shape=(b, nh, nc, npass),
+        dcb_shape=(b, nc, nhb, QP, QP), vecs_shape=(b, nc, nh, nqt + 4, QP),
+        dyx_shape=(b, nc, nh, nqt), parts_shape=(b, S, nhb, N),
+        ad_shape=(b, nc, nh))
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,7 +312,11 @@ def ssd_scan_bwd(x, dt, A, B, C, D, kept, dy, dh_final=None, *, chunk: int,
     (states, acum, cb) of its call with `keep_scratch=True`, dy like y and
     dh_final (b, nh, hd, N) f32 or None (zeros) -> (dx, ddt, dA, dB, dC,
     dD, dh0): dx, dB, dC in x's dtype, the rest f32; dh0 None where h0 is
-    None."""
+    None. The scratch is `ssd_bwd_plan`'s, all f32: G_c / dh_out like the
+    kept states (in bf16 also dh_out's and h_in's hi / lo planes, each the
+    states' size), each head block's summed dCB tiles, (b, S, nh / hb, N)
+    row parts of dB and dC (hb heads a block, not one row a head), and
+    small per-chunk vectors; one op call, seven launches."""
     f32 = torch.float32
     name = "ssd_scan_bwd"
     _check(name, x, dt, A, B, C, D, h0, chunk)
@@ -219,24 +347,25 @@ def ssd_scan_bwd(x, dt, A, B, C, D, kept, dy, dh_final=None, *, chunk: int,
     dC = torch.empty_like(C)
     dD = torch.empty_like(D)
     dh0 = torch.empty((b, nh, hd, N), dtype=f32, device=x.device)
-    nc = plan.chunks
-
-    def scratch(*shape):
-        return torch.empty(shape, dtype=f32, device=x.device)
-    dstates = scratch(*plan.states_shape)
-    decay = scratch(b, nh, nc)
-    dBh, dCh = scratch(b, S, nh, N), scratch(b, S, nh, N)
-    pA, pD = scratch(b, nc, nh), scratch(b, nc, nh)
+    bplan = ssd_bwd_plan(b, S, nh, hd, G, N, chunk,
+                         _sm_count(x.device.index or 0),
+                         bf16=x.dtype == torch.bfloat16)
+    scr = {k: torch.empty(v, dtype=f32, device=x.device)
+           for k, v in bplan.scratch_shapes().items()}
     if b and S and nh:
+        grids = (ctypes.c_int * 21)(*(n for g in bplan.grids for n in g))
         check(library().ssd_scan_bwd(
             DTYPE_CODES[x.dtype], hd, x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
             states.data_ptr(), acum.data_ptr(), cb.data_ptr(), dy.data_ptr(),
             dh_final.data_ptr() if dh_final is not None else None,
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), dD.data_ptr(), dh0.data_ptr(), dstates.data_ptr(),
-            decay.data_ptr(), dBh.data_ptr(), dCh.data_ptr(), pA.data_ptr(),
-            pD.data_ptr(), b, S, nh, G, N, chunk, stream_of(x)),
+            dC.data_ptr(), dD.data_ptr(), dh0.data_ptr(),
+            *(scr[k].data_ptr() for k in (
+                "dstates", "dsplit", "hsplit", "decay", "dcb", "vecs", "dyx",
+                "dBp", "dCp", "pA", "pD")),
+            b, S, nh, G, N, chunk, bplan.heads_per_block, int(h0 is not None),
+            grids, stream_of(x)),
             name)
         ssd_scan_bwd.launches += 1
     else:

@@ -1197,23 +1197,44 @@ def _ssd_grads_close(got, want, dtype):
         assert err <= SSD_BWD_BOUNDS[dtype] * scale, (name, err, scale)
 
 
+SSD_BWD_SHAPES = [
+    # (b, S, nh, hd, G, N, chunk), heads a block on 132 SMs in the comment
+    (2, 48, 8, 16, 1, 16, 16),               # the smoke configs' scan; 1
+    (1, 512, 80, 64, 1, 128, 256),           # mamba2-2.7b: hd 64, N 128; 4
+    (1, 512, 112, 64, 1, 64, 256),           # zamba2-7b: N 64; 4
+    (1, 1024, 80, 64, 1, 128, 256),          # 8
+    (1, 256, 80, 16, 1, 64, 128),            # 2
+    (1, 400, 64, 32, 2, 64, 100),            # a 36-row tail tile, G 2; 2
+    (2, 1024, 32, 128, 2, 128, 256),         # hd 128, N 128, G 2; 4
+    (2, 200, 8, 32, 2, 32, 40),              # G = 2, a chunk of 40 rows; 1
+    (1, 96, 4, 8, 2, 16, 32),                # hd 8; 1
+    (1, 192, 4, 128, 1, 80, 96),             # hd 128, N 80, ragged tiles; 1
+    (1, 12, 2, 16, 1, 16, 1),                # chunks of one step; 1
+]
+
+
+def test_ssd_scan_bwd_shapes_reach_every_head_block():
+    """The card cases below take 1, 2, 4 and 8 heads a block on the H100's
+    132 SMs (`ssd_bwd_plan`), and each of hd 8 and 128, N 64 and 128."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bwd_plan
+    hbs = {ssd_bwd_plan(b, S, nh, hd, G, N, q, 132).heads_per_block
+           for b, S, nh, hd, G, N, q in SSD_BWD_SHAPES}
+    assert hbs == {1, 2, 4, 8}
+    assert {8, 128} <= {s[3] for s in SSD_BWD_SHAPES}
+    assert {64, 128} <= {s[5] for s in SSD_BWD_SHAPES}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [
-    # (b, S, nh, hd, G, N, chunk)
-    (2, 48, 8, 16, 1, 16, 16),               # the smoke configs' scan
-    (1, 512, 80, 64, 1, 128, 256),           # mamba2-2.7b: hd 64, N 128
-    (1, 512, 112, 64, 1, 64, 256),           # zamba2-7b: N 64
-    (2, 200, 8, 32, 2, 32, 40),              # G = 2, a chunk of 40 rows
-    (1, 96, 4, 8, 2, 16, 32),                # hd 8
-    (1, 192, 4, 128, 1, 80, 96),             # hd 128, N 80, ragged tiles
-    (1, 12, 2, 16, 1, 16, 1),                # chunks of one step
-])
-def test_ssd_scan_bwd_kernel(cuda, shape, dtype):
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_scan_bwd_kernel(cuda, shape, dtype, monkeypatch):
     """dx, ddt, dA, dB, dC, dD and dh0 of the kernel against the plain
     version on the same inputs, with h0 and dh_final given, from what the
     forward kernel kept; one launch counted a call; a second call gives
-    identical bits (no atomics)."""
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+    identical bits (no atomics); the wrapper's scratch is the plan's, its
+    dB / dC row parts (b, S, nh / hb, N), with no (b, S, nh, N) tensor
+    where a block has several heads."""
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_plan, ssd_scan,
+                                                     ssd_scan_bwd)
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     b, S, nh, hd, G, N, chunk = shape
     rng = np.random.default_rng(S + nh)
@@ -1228,7 +1249,25 @@ def test_ssd_scan_bwd_kernel(cuda, shape, dtype):
     _, _, kept = ssd_scan(x, dt, A, B, C, D, chunk=chunk, h0=h0,
                           keep_scratch=True)
     before = tk.launch_counts()["ssd_scan_bwd"]
+    made, empty = [], torch.empty
+
+    def recorded(*a, **k):
+        t = empty(*a, **k)
+        made.append(tuple(t.shape))
+        return t
+    monkeypatch.setattr(torch, "empty", recorded)
     got = ssd_scan_bwd(x, dt, A, B, C, D, kept, dy, dh, chunk=chunk, h0=h0)
+    monkeypatch.undo()
+    plan = ssd_bwd_plan(b, S, nh, hd, G, N, chunk,
+                        torch.cuda.get_device_properties(
+                            cuda).multi_processor_count,
+                        bf16=dtype == torch.bfloat16)
+    hb = plan.heads_per_block
+    assert plan.parts_shape == (b, S, nh // hb, N)
+    assert set(made) <= set(plan.scratch_shapes().values()) | {
+        (b, nh, hd, N)}
+    if hb > 1:
+        assert (b, S, nh, N) not in made
     again = ssd_scan_bwd(x, dt, A, B, C, D, kept, dy, dh, chunk=chunk,
                          h0=h0)
     assert tk.launch_counts()["ssd_scan_bwd"] == before + 2

@@ -5,9 +5,10 @@ backward is `ssd_scan_bwd_ref`. Its gradients (dx, ddt, dA, dB, dC, dD,
 dh0) are held against `jax.vjp` of the jnp `repro.models.ssd.ssd_chunked`,
 the function the JAX train step differentiates, on the same numpy inputs.
 The kernel's own decomposition (`csrc/ssd_scan_bwd.cu`: chunk state
-gradients, reverse state passing, per-chunk gradients, fixed-order sums)
-is written out below in PyTorch and held to the same reference, so the
-formula the card runs is checked here too.
+gradients, reverse state passing, the source and query sides of each chunk
+by head blocks, the scan of d a_cum, fixed-order sums), written out in
+PyTorch as `ssd_scan_bwd_split_ref`, is held to the same reference, so
+the formula the card runs is checked here too.
 
 Tolerance: each gradient within 5e-5 of its largest |value| in f32 (the
 f32 figure of `tests/test_kernels.py:16`); with bf16 x, B, C and dy,
@@ -22,6 +23,7 @@ import torch
 
 from repro.models.ssd import ssd_chunked as jx_ssd_chunked
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_bwd_plan
 from repro_torch.kernels.ssd_scan.ops import SsdScan, ssd_scan_op
 
 GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
@@ -163,95 +165,53 @@ def test_padded_tail_passes_the_gradient_through():
 
 
 # ---------------------------------------------------------------------------
-# the kernel's decomposition, written out, against the same reference
+# the kernel's decomposition (`ssd_scan_bwd_split_ref`) against the same
+# reference
 # ---------------------------------------------------------------------------
 
-def split_bwd(x, dt, A, B, C, D, dy, dh_final, chunk, h0=None):
-    """The gradient in the four launches of `csrc/ssd_scan_bwd.cu`, all f32:
-    (a) the chunk state gradients G_c, (b) the reverse state passing with
-    the decay's gradient, (c) each chunk's gradients from C.B^T under the
-    decay mask, dy xdt^T, h_in and dh_out, d a_cum's reverse cumulative
-    sum, (d) dB, dC summed over each group's heads, dA, dD over batch and
-    chunks. -> (dx, ddt, dA, dB, dC, dD, dh0)."""
-    f32 = torch.float32
-    b, S, nh, hd = x.shape
-    G, N = B.shape[2], B.shape[3]
-    rep, Q = nh // G, chunk
-    nc = S // Q
-    xc = x.to(f32).reshape(b, nc, Q, nh, hd)
-    dtc = dt.to(f32).reshape(b, nc, Q, nh)
-    Bh = B.to(f32).reshape(b, nc, Q, G, N).repeat_interleave(rep, 3)
-    Ch = C.to(f32).reshape(b, nc, Q, G, N).repeat_interleave(rep, 3)
-    dyc = dy.to(f32).reshape(b, nc, Q, nh, hd)
-    A, D = A.to(f32), D.to(f32)
-    # what the forward keeps: a_cum and each chunk's carried-in state
-    acum = torch.cumsum(dtc * A, 2)                           # (b,nc,Q,nh)
-    xdt = xc * dtc[..., None]
-    w = torch.exp(acum[:, :, -1:] - acum)
-    S_c = torch.einsum("bcqhd,bcqhn->bchdn", xdt * w[..., None], Bh)
-    h = torch.zeros(b, nh, hd, N) if h0 is None else h0.to(f32)
-    h_in = []
-    for c in range(nc):
-        h_in.append(h)
-        h = h * torch.exp(acum[:, c, -1])[..., None, None] + S_c[:, c]
-    h_in = torch.stack(h_in, 1)                               # (b,nc,nh,hd,N)
-    # (a)
-    G_c = torch.einsum("bcqhd,bcqhn->bchdn",
-                       dyc * torch.exp(acum)[..., None], Ch)
-    # (b)
-    dh = torch.zeros(b, nh, hd, N) if dh_final is None else dh_final.to(f32)
-    dS, decay = [None] * nc, [None] * nc
-    for c in reversed(range(nc)):
-        e = torch.exp(acum[:, c, -1])
-        dS[c] = dh
-        decay[c] = e * (dh * h_in[:, c]).sum((-1, -2))
-        dh = dh * e[..., None, None] + G_c[:, c]
-    dS, decay = torch.stack(dS, 1), torch.stack(decay, 1)    # (b,nc,nh)
-    # (c)
-    dxdt = w[..., None] * torch.einsum("bchdn,bcqhn->bcqhd", dS, Bh)
-    q = (xdt * dxdt).sum(-1)
-    dBh = w[..., None] * torch.einsum("bchdn,bcqhd->bcqhn", dS, xdt)
-    dCh = torch.exp(acum)[..., None] * torch.einsum(
-        "bchdn,bcqhd->bcqhn", h_in, dyc)
-    yoff = (Ch * dCh).sum(-1)
-    CB = torch.einsum("bcthn,bcshn->bchts", Ch, Bh)
-    at = acum.permute(0, 1, 3, 2)
-    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
-    L = torch.where(causal, torch.exp(torch.where(
-        causal, at[..., :, None] - at[..., None, :], 0.0)), 0.0)
-    dCB = torch.einsum("bcthd,bcshd->bchts", dyc, xdt) * L
-    R = dCB * CB
-    dxdt = dxdt + torch.einsum("bchts,bcthd->bcshd", CB * L, dyc)
-    dBh = dBh + torch.einsum("bchts,bcthn->bcshn", dCB, Ch)
-    dCh = dCh + torch.einsum("bchts,bcshn->bcthn", dCB, Bh)
-    dac = (R.sum(-1) - R.sum(-2)).permute(0, 1, 3, 2) + yoff - q
-    dac[:, :, -1] += q.sum(2) + decay
-    da = torch.flip(torch.cumsum(torch.flip(dac, [2]), 2), [2])
-    dx = dxdt * dtc[..., None] + D[:, None] * dyc
-    ddt = (dxdt * xc).sum(-1) + da * A
-    # (d)
-    dB = dBh.reshape(b, nc, Q, G, rep, N).sum(4)
-    dC = dCh.reshape(b, nc, Q, G, rep, N).sum(4)
-    return (dx.reshape(b, S, nh, hd), ddt.reshape(b, S, nh),
-            (da * dtc).sum((0, 1, 2)), dB.reshape(b, S, G, N),
-            dC.reshape(b, S, G, N), (dyc * xc).sum((0, 1, 2, 4)), dh)
-
-
 @pytest.mark.parametrize("case", [
-    # (S, chunk, G, h0, dh_final)
-    (48, 16, 2, True, True),
-    (36, 12, 1, False, True),      # a chunk that is not a power of two
-    (32, 32, 4, True, False),      # one chunk, a head a group
+    # (S, chunk, G, h0, dh_final, nh, hd, N, SMs, heads a block)
+    (48, 16, 2, True, True, 4, 8, 16, 132, 1),
+    (36, 12, 1, False, True, 4, 8, 16, 132, 1),   # a chunk not a power of 2
+    (32, 32, 4, True, False, 4, 8, 16, 132, 1),   # one chunk, a head a group
+    # head blocks of 4, 2 and 1 heads of a group (G = 2), a chunk of 100
+    # rows (a 64-row tile and a ragged 36-row one)
+    (200, 100, 2, True, True, 8, 16, 32, 16, 4),
+    (200, 100, 2, False, True, 8, 8, 16, 32, 2),
+    (200, 100, 2, True, False, 8, 32, 32, 64, 1),
+    (130, 130, 2, True, True, 8, 16, 32, 4, 4),   # one chunk, 3 tiles
 ])
 def test_kernel_decomposition_matches_jax_vjp(case):
-    S, chunk, G, with_h0, with_dh = case
-    arrs = _inputs(S + G, S, G, with_h0, with_dh)
+    """`ssd_scan_bwd_split_ref` (the seven launches of
+    `csrc/ssd_scan_bwd.cu`, head blocks from `ssd_bwd_plan` for the given
+    SM count) against jax.vjp in f32."""
+    S, chunk, G, with_h0, with_dh, nh, hd, N, sms, hb = case
+    assert ssd_bwd_plan(b_, S, nh, hd, G, N, chunk,
+                        sms).heads_per_block == hb
+    arrs = _inputs(S + G, S, G, with_h0, with_dh, nh=nh, hd=hd, N=N)
     t = [None if a is None else torch.from_numpy(a) for a in arrs]
     x, dt, A, B, C, D, h0, dy, dh = t
-    got = split_bwd(x, dt, A, B, C, D, dy, dh, chunk, h0=h0)
+    got = ssd_ref.ssd_scan_bwd_split_ref(x, dt, A, B, C, D, dy, dh,
+                                         chunk=chunk, h0=h0, sm_count=sms)
     got = [g.numpy() for g in got[:6]] + \
         [got[6].numpy() if h0 is not None else None]
     _close(got, _jax_grads(arrs, chunk, torch.float32), "float32")
+
+
+def test_kernel_decomposition_bf16_inputs():
+    """bf16 x, B, C and dy through the decomposition (f32 arithmetic, dx,
+    dB and dC rounded once to bf16) against jax.vjp on the same bf16
+    inputs, within the bf16 bound."""
+    arrs = _inputs(98, 3 * Q_, 2, True, True)
+    t = [None if a is None else torch.from_numpy(a) for a in arrs]
+    x, dt, A, B, C, D, h0, dy, dh = t
+    bf = torch.bfloat16
+    got = ssd_ref.ssd_scan_bwd_split_ref(x.to(bf), dt, A, B.to(bf),
+                                         C.to(bf), D, dy.to(bf), dh,
+                                         chunk=Q_, h0=h0)
+    assert got[0].dtype == got[3].dtype == got[4].dtype == bf
+    got = [g.float().numpy() for g in got]
+    _close(got, _jax_grads(arrs, Q_, bf), "bfloat16")
 
 
 def test_plain_bwd_and_function_agree():

@@ -16,7 +16,7 @@ import torch
 from repro.kernels.ssd_scan.kernel import ssd_scan as jx_scan
 from repro.models import ssd as jx_ssd
 from repro_torch.kernels.ssd_scan.kernel import (MAX_HEADS_PER_BLOCK, TILE,
-                                                 ssd_plan)
+                                                 ssd_bwd_plan, ssd_plan)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_split_ref
 
 TOL = dict(atol=3e-4, rtol=3e-4)          # tests/test_kernels.py:237
@@ -97,6 +97,69 @@ def test_ssd_plan_heads_per_block_fills_the_card():
     # G = 2: a block's heads never straddle the groups
     assert ssd_plan(1, 2048, 6, 64, 2, 128, 256).heads_per_block == 1
     assert ssd_plan(4, 2048, 8, 64, 2, 128, 256).heads_per_block == 4
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_ssd_bwd_plan_serves_every_tile_once(shape):
+    """The gradient's launch plan: every (batch, chunk, head, 64-row tile)
+    served once by a source-side, a head-side and a query-side block,
+    each block's heads in one group, the heaviest tiles first; the scratch
+    shapes, with no (b, S, nh, N) row a head."""
+    b, S, nh, G, chunk = shape
+    hd, N = 64, 128
+    p = ssd_bwd_plan(b, S, nh, hd, G, N, chunk)
+    nc, nqt = S // chunk, -(-chunk // TILE)
+    QP, hb, rep = nqt * TILE, p.heads_per_block, nh // G
+    assert (p.chunks, p.q_tiles) == (nc, nqt)
+    assert hb == ssd_plan(b, S, nh, hd, G, N, chunk).heads_per_block
+    assert 1 <= hb <= MAX_HEADS_PER_BLOCK and rep % hb == 0
+    want = list(itertools.product(range(b), range(nc), range(nh),
+                                  range(nqt)))
+    seen = []
+    for x, y, z in itertools.product(*(range(n) for n in p.grid_head)):
+        bi, c, tile, h = p.head_block(x, y, z)
+        seen.append((bi, c, h, tile))
+    assert sorted(seen) == want
+    for grid, block in ((p.grid_src, p.src_block),
+                        (p.grid_qry, p.qry_block)):
+        seen = []
+        for x, y, z in itertools.product(*(range(n) for n in grid)):
+            bi, c, tile, heads = block(x, y, z)
+            assert len(heads) == hb and len({h // rep for h in heads}) == 1
+            seen += [(bi, c, h, tile) for h in heads]
+        assert sorted(seen) == want
+    # source tile 0 pairs with every query tile, query tile nqt - 1 with
+    # every source tile: each launch starts with them
+    assert p.src_block(0, 0, 0)[2] == 0
+    assert p.qry_block(0, 0, 0)[2] == nqt - 1
+    npass = -(-hd * N // 256)
+    assert p.grid_dstate == (nc, nh, b)
+    assert p.grid_pass == (npass, nh, b)
+    assert p.grid_scan == (nh, nc, b)
+    assert p.grid_reduce[0] * 256 >= max(b * S * G * N, nh)
+    nhb = nh // hb
+    assert p.scratch_shapes() == dict(
+        dstates=(b, nc, nh, N, hd), dsplit=(0,), hsplit=(0,),
+        decay=(b, nh, nc, npass),
+        dcb=(b, nc, nhb, QP, QP), vecs=(b, nc, nh, nqt + 4, QP),
+        dyx=(b, nc, nh, nqt), dBp=(b, S, nhb, N), dCp=(b, S, nhb, N),
+        pA=(b, nc, nh), pD=(b, nc, nh))
+    assert len(p.grids) == 7 and all(len(g) == 3 for g in p.grids)
+    # bf16: dS and h_in as bf16 pairs, each the states' bytes
+    pb = ssd_bwd_plan(b, S, nh, hd, G, N, chunk, bf16=True)
+    assert pb.split_shape == (b, nc, nh, N, hd) and pb.grids == p.grids
+
+
+def test_ssd_bwd_plan_heads_per_block():
+    """The forward's rule: mamba2-2.7b's and zamba2-7b's training shapes
+    take 8 heads a block; a group of 4 heads takes 4, 2 or 1 as the SMs
+    ask; the dB / dC row parts shrink by the heads a block."""
+    p = ssd_bwd_plan(2, 2048, 80, 64, 1, 128, 256)
+    assert p.heads_per_block == 8 and p.parts_shape == (2, 2048, 10, 128)
+    assert ssd_bwd_plan(2, 2048, 112, 64, 1, 64, 256).heads_per_block == 8
+    for sms, hb in ((16, 4), (32, 2), (64, 1)):
+        assert ssd_bwd_plan(2, 200, 8, 16, 2, 32, 100,
+                            sms).heads_per_block == hb
 
 
 SPLIT_SHAPES = [
