@@ -1,0 +1,7 @@
+"""As `mfu.prefill`, in the cell above the knee, where it moves the tokens
+completed per second."""
+from pathlib import Path
+
+from bench.cell import load_module
+
+read = load_module(Path(__file__).with_name("mfu.prefill.py")).read
