@@ -1,4 +1,6 @@
-# Copied unchanged from src/repro/core/telemetry.py.
+# From src/repro/core/telemetry.py, less its rid-hash sampling and its
+# wall-clock stamps (the port's profiler ranges give the shared clock), and
+# with the `host` span category of the port's engine steps.
 """Unified request-lifecycle tracing + metrics for live and simulated serving.
 
 Every `ServingBackend` (live cluster or discrete-event simulator) can carry a
@@ -24,6 +26,18 @@ Span schema (categories):
           pipelining stall).
   wire    one span per KV migration pull on a ``wire:src->dst`` lane
           (args ``bytes``; streamed pulls also carry ``t_first``).
+  host    the live cluster's host time, on a real clock, while tracing:
+          each engine step's phases, children of its step span (arg
+          ``step`` = the parent's index in `Tracer.spans`) at the step's
+          virtual start plus their host offsets -- ``decode.launch`` /
+          ``prefill.launch`` (the model's calls until they return),
+          ``.sync`` (the wait for the device; launch + sync is the charged
+          step) and ``.sample`` (the token's readback) -- and ``admit``, a
+          migration's page write on the decode instance (args ``host_s``,
+          ``pages``, ``device_s``). None under an `EngineCharge`. The same
+          names are `torch.profiler.record_function` ranges, inside the
+          umbrella ranges ``decode_step`` / ``prefill_batch`` / ``chunk``
+          and the event loop's ``cluster.<event>`` ranges.
 
 Instant events: ``token`` (per emitted token, args ``i``), ``route_prefill``
 / ``route_decode`` (dispatcher decisions, args ``instance``/``hit``),
@@ -51,7 +65,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -76,15 +89,12 @@ class SpanEvent:
 
 @dataclasses.dataclass
 class Instant:
-    """Global instant event (token emission, routing decision, ...).
-    `wall_t` is the optional wall-clock stamp (None unless the tracer
-    carries a `wall_clock` source)."""
+    """Global instant event (token emission, routing decision, ...)."""
     name: str
     t: float
     rid: Optional[int] = None
     lane: Optional[str] = None
     args: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    wall_t: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -97,9 +107,6 @@ class Span:
     t1: Optional[float] = None
     args: Dict[str, Any] = dataclasses.field(default_factory=dict)
     events: List[SpanEvent] = dataclasses.field(default_factory=list)
-    # wall-clock stamps (opt-in; virtual t0/t1 stay the span's identity)
-    wall_t0: Optional[float] = None
-    wall_t1: Optional[float] = None
 
     @property
     def open(self) -> bool:
@@ -152,58 +159,20 @@ class Tracer:
     next; re-entering the same phase+lane is a no-op, which is what chunked
     prefill's re-queue does); `finish_phase` closes the open phase with a
     terminal `SpanEvent` (``FINISHED`` / ``CANCELLED`` / ``FAILED``).
-
-    `sample_rate` < 1.0 turns on per-request trace sampling for fleet-scale
-    runs: sampled requests keep every span, unsampled ones go instants-only
-    (tokens, routing decisions, terminals still land; their per-request
-    spans are created but never retained). The decision is a deterministic
-    rid hash — no RNG — so the same request samples identically in the
-    simulator and on the live cluster, and sampling can never perturb
-    tokens, timings, or routing (it only filters what is *recorded*).
-    Spans without a rid (decode step spans, batch-level compute) are
-    instance-scoped, not request-scoped, and are always kept.
-
-    `wall_clock` (opt-in, e.g. ``time.time``) adds wall-clock stamps
-    alongside the virtual timestamps: spans gain `wall_t0`/`wall_t1`
-    (sampled at `begin`/`end` call time), instants gain `wall_t`.
-    Virtual time stays the identity — parity diffs and the phase state
-    machine never look at wall stamps — but an exported trace carries
-    both, so a live run can be lined up against real elapsed time (and
-    a sim run against search wall-cost). Default None: no stamps, no
-    per-event clock reads, byte-identical traces to before the knob.
     """
     enabled = True
 
-    def __init__(self, sample_rate: float = 1.0, sample_seed: int = 0,
-                 wall_clock: Optional[Callable[[], float]] = None):
+    def __init__(self):
         self.spans: List[Span] = []
         self.instants: List[Instant] = []
         self.terminals: Dict[int, Tuple[str, float]] = {}
         self._open_phase: Dict[int, Span] = {}
-        self.sample_rate = float(sample_rate)
-        self.sample_seed = int(sample_seed)
-        self.wall_clock = wall_clock
-
-    def sampled(self, rid: Optional[int]) -> bool:
-        """Per-request keep-all decision (deterministic rid hash)."""
-        if rid is None or self.sample_rate >= 1.0:
-            return True
-        if self.sample_rate <= 0.0:
-            return False
-        x = (rid * 0x9E3779B9 + self.sample_seed * 0x85EBCA6B) & 0xFFFFFFFF
-        x ^= x >> 16
-        x = (x * 0x45D9F3B) & 0xFFFFFFFF
-        x ^= x >> 16
-        return x / 2.0 ** 32 < self.sample_rate
 
     # -- explicit spans -------------------------------------------------
     def begin(self, cat: str, name: str, t: float, lane: str,
               rid: Optional[int] = None, **args) -> Span:
         sp = Span(cat, name, lane, t, rid=rid, args=args)
-        if self.wall_clock is not None:
-            sp.wall_t0 = float(self.wall_clock())
-        if self.sampled(rid):
-            self.spans.append(sp)
+        self.spans.append(sp)
         return sp
 
     def end(self, span: Span, t: float, **args):
@@ -214,9 +183,6 @@ class Tracer:
             raise ValueError(f"span ends before it starts: {span.name} "
                              f"{t} < {span.t0}")
         span.t1 = t
-        if self.wall_clock is not None:
-            span.wall_t1 = max(float(self.wall_clock()),
-                               span.wall_t0 or -math.inf)
         if args:
             span.args.update(args)
 
@@ -228,15 +194,10 @@ class Tracer:
 
     def event(self, name: str, t: float, rid: Optional[int] = None,
               lane: Optional[str] = None, **args):
-        wall = (float(self.wall_clock())
-                if self.wall_clock is not None else None)
-        self.instants.append(Instant(name, t, rid=rid, lane=lane, args=args,
-                                     wall_t=wall))
+        self.instants.append(Instant(name, t, rid=rid, lane=lane, args=args))
 
     # -- per-request phase state machine --------------------------------
     def phase(self, rid: int, name: str, t: float, lane: str, **args):
-        if not self.sampled(rid):
-            return
         cur = self._open_phase.get(rid)
         if cur is not None:
             if cur.name == name and cur.lane == lane:
@@ -247,8 +208,6 @@ class Tracer:
 
     def finish_phase(self, rid: int, t: float, terminal: str):
         self.terminals[rid] = (terminal, t)
-        if not self.sampled(rid):
-            return
         cur = self._open_phase.pop(rid, None)
         if cur is None:                         # e.g. cancel pre-arrival
             self.event(terminal, t, rid=rid)
@@ -522,10 +481,6 @@ def to_chrome_trace(tracer: Tracer,
         args = {k: v for k, v in s.args.items()}
         if s.rid is not None:
             args["rid"] = s.rid
-        if s.wall_t0 is not None:
-            args["wall_t0"] = s.wall_t0
-            if s.wall_t1 is not None:
-                args["wall_t1"] = s.wall_t1
         ev = {"name": s.name, "cat": s.cat, "ph": "X", "ts": s.t0 * _US,
               "dur": (s.dur if not s.open else 0.0) * _US,
               "pid": pid_of[s.lane], "tid": 0, "args": args}
@@ -548,8 +503,6 @@ def to_chrome_trace(tracer: Tracer,
         args = dict(i.args)
         if i.rid is not None:
             args["rid"] = i.rid
-        if i.wall_t is not None:
-            args["wall_t"] = i.wall_t
         events.append({"name": i.name, "cat": "instant", "ph": "i",
                        "s": "t", "ts": i.t * _US, "pid": pid_of[lane],
                        "tid": 0, "args": args})
@@ -621,15 +574,6 @@ def validate_chrome_trace(doc: Any) -> List[str]:
             errors.append(f"{where}: non-monotone ts {ts} < {last_ts}")
         last_ts = ts
         key = (ev.get("pid"), ev.get("tid"))
-        args = ev.get("args") or {}
-        for wk in ("wall_t0", "wall_t1", "wall_t"):
-            if wk in args and not isinstance(args[wk], (int, float)):
-                errors.append(f"{where}: non-numeric {wk} {args[wk]!r}")
-        if isinstance(args.get("wall_t0"), (int, float)) and \
-                isinstance(args.get("wall_t1"), (int, float)) and \
-                args["wall_t1"] < args["wall_t0"]:
-            errors.append(f"{where}: wall_t1 {args['wall_t1']} < "
-                          f"wall_t0 {args['wall_t0']}")
         if ph == "X":
             dur = ev.get("dur")
             if not isinstance(dur, (int, float)) or dur < 0:
@@ -655,10 +599,10 @@ def validate_chrome_trace(doc: Any) -> List[str]:
 
 
 def _main(argv: List[str]) -> int:
-    """CLI: ``python -m repro.core.telemetry trace.json [...]`` validates
-    exported traces against the schema checker (CI uses this)."""
+    """CLI: ``python -m repro_torch.core.telemetry trace.json [...]``
+    validates exported traces against the schema checker (CI uses this)."""
     if not argv:
-        print("usage: python -m repro.core.telemetry TRACE.json [...]")
+        print("usage: python -m repro_torch.core.telemetry TRACE.json [...]")
         return 2
     rc = 0
     for path in argv:

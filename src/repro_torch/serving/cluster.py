@@ -1,6 +1,9 @@
 # Copied from src/repro/serving/cluster.py; `.engine` is the port's engine,
 # every cluster takes a `device` that it hands to its engines, and
-# `ServingCluster` / `DisaggCluster` a storage `dtype` for them.
+# `ServingCluster` / `DisaggCluster` a storage `dtype` for them. It stamps
+# `Request.prefill_start` as `core/simulator.py` does, and while it traces
+# it records each engine step's host phases and each admission's page
+# write as `host` spans and `torch.profiler.record_function` ranges.
 """Role-unified live serving cluster on the port's PyTorch engines with
 virtual-clock concurrency emulation (DistServe runtime, Fig. 6, extended
 with runtime aggregation<->disaggregation).
@@ -43,9 +46,11 @@ failover paths in core.fault.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence as Seq, Tuple
 
 import numpy as np
+import torch
 
 from ..core.fault import HeartbeatMonitor
 from ..core.kv_transfer import TransferManager, kv_bytes, pipelined_finish
@@ -75,6 +80,20 @@ def _slice_blob(blob, skip_tokens: int):
                   if k.startswith("seg") else v)
               for k, v in cache.items()}
     return sliced, n_tok
+
+
+def _splice(e: Engine, seq: Sequence, blob, skip: int,
+            pinned: List[int]) -> int:
+    """The migration's page write: the wire payload into the decode
+    engine's pages. A page-backed blob's payload is stitched by its
+    prefill engine from its page pool (which drops its pins). Returns the
+    payload's token count."""
+    if isinstance(blob, KVBlob):
+        wire = blob.owner.materialize_wire(blob, skip)
+    else:
+        wire = _slice_blob(blob, skip)
+    e.insert_kv(seq, wire, shared=pinned, skip_tokens=skip)
+    return wire[1]
 
 
 class _LiveBackend(BackendBase):
@@ -278,6 +297,7 @@ class ServingCluster(_LiveBackend):
         self._iid_next[role] += 1
         label = f"engine{iid}" if role == "mixed" else f"{role}{iid}"
         engine = Engine(self.cfg, self._params, **self._engine_kw[role])
+        engine.trace = self.tracer.enabled
         x = _LiveInstance(len(self.inst), role, iid, engine, label)
         self.monitor.register(label)
         return x
@@ -382,6 +402,14 @@ class ServingCluster(_LiveBackend):
         self._ev.push(t, "arrive", state)
 
     def _handle(self, t: float, kind: str, payload: Any):
+        if self.tracer.enabled:
+            # the event's host work, as a range on the profiler's clock
+            with torch.profiler.record_function("cluster." + kind):
+                self._dispatch(t, kind, payload)
+        else:
+            self._dispatch(t, kind, payload)
+
+    def _dispatch(self, t: float, kind: str, payload: Any):
         if kind == "arrive":
             self._on_arrive(payload, t)
         elif kind == "poke_prefill":
@@ -509,6 +537,7 @@ class ServingCluster(_LiveBackend):
             state = self._states[seq.rid]
             state.to_status(RequestStatus.PREFILLING)
             req = state.request
+            req.prefill_start = now
             first, blob, dt = p.engine.prefill_request(seq)
             if self.charge is not None:
                 dt = self.charge.prefill([len(seq.tokens) - seq.prefix_hit])
@@ -519,6 +548,7 @@ class ServingCluster(_LiveBackend):
                     p.label, rid=seq.rid,
                     tokens=len(seq.tokens) - seq.prefix_hit,
                     hit=seq.prefix_hit)
+                self._host_spans(p, now)
             seq.append_token(first)
             req.first_token = now + dt
             self._emit_token(state, first, now + dt)
@@ -552,6 +582,8 @@ class ServingCluster(_LiveBackend):
         state = self._states[seq.rid]
         req = state.request
         state.to_status(RequestStatus.PREFILLING)
+        if not e.has_partial(seq):          # the first chunk
+            req.prefill_start = now
         prev = seq.prefilled
         done, first, blob, dt, _c = e.prefill_chunk(seq, self.chunk_tokens)
         if self.charge is not None:
@@ -562,6 +594,7 @@ class ServingCluster(_LiveBackend):
             self.tracer.complete("compute", "chunk", now, t_end,
                                  p.label, rid=seq.rid,
                                  tokens=_c, ctx=prev)
+            self._host_spans(p, now)
         state.progress = seq.prefilled
         seg_bytes = kv_bytes(self.cfg, seq.prefilled) - \
             (kv_bytes(self.cfg, prev) if prev else 0)
@@ -748,13 +781,10 @@ class ServingCluster(_LiveBackend):
         src = self.tx.parked[seq.rid].src
         blob, t_first, t_full = self.tx.pull_streamed(seq.rid, now,
                                                       dst=d.iid)
-        if isinstance(blob, KVBlob):
-            # page-backed blob: the prefill engine stitches the wire
-            # payload from its page pool (and drops its pins)
-            wire = blob.owner.materialize_wire(blob, skip)
+        if self.tracer.enabled and self.charge is None:
+            self._traced_splice(d, seq, blob, skip, pinned, now)
         else:
-            wire = _slice_blob(blob, skip)
-        d.engine.insert_kv(seq, wire, shared=pinned, skip_tokens=skip)
+            _splice(d.engine, seq, blob, skip, pinned)
         d.engine.unpin(pinned)
         # per-layer streaming: decode starts attending once the first
         # layer of the last chunk lands, not at blob-complete; a granted
@@ -771,6 +801,36 @@ class ServingCluster(_LiveBackend):
             self.tracer.phase(seq.rid, "decoding", seq.kv_first, d.label)
         d.active.append(seq)
         self._poke_src(src, now)
+
+    def _traced_splice(self, d: _LiveInstance, seq: Sequence, blob,
+                       skip: int, pinned: List[int], now: float):
+        """`_splice` inside an `admit` range, recorded as an `admit` span
+        (category host, at the admission's virtual instant plus its host
+        seconds) with args `host_s` and the `pages` written. Its device
+        time is the device trace's, of the operations the range launches:
+        two CUDA events around the write would time the host's launches
+        too, since the device waits idle for them."""
+        e = d.engine
+        with torch.profiler.record_function("admit"):
+            h0 = time.perf_counter()
+            n_tok = _splice(e, seq, blob, skip, pinned)
+            host_s = time.perf_counter() - h0
+        pages = -(-n_tok // e._kv.page_size) - len(pinned) if e.paged else 0
+        self.tracer.complete("host", "admit", now, now + host_s, d.label,
+                             rid=seq.rid, host_s=host_s, pages=pages)
+
+    def _host_spans(self, x: _LiveInstance, now: float):
+        """The engine's last step phases (`Engine.phases`) as `host` spans,
+        children of the step span just recorded (arg `step`: its index in
+        `tracer.spans`), at the step's virtual start plus their host
+        offsets. Under a charge the virtual step is the model's time, not
+        the host's, so there are none."""
+        if self.charge is not None:
+            return
+        parent = len(self.tracer.spans) - 1
+        for name, a, b in x.engine.phases:
+            self.tracer.complete("host", name, now + a, now + b, x.label,
+                                 step=parent)
 
     def _poke_decode(self, d: _LiveInstance, now: float):
         if d.role != "decode" or d.failed:
@@ -883,6 +943,7 @@ class ServingCluster(_LiveBackend):
         if self.tracer.enabled:
             self.tracer.complete("step", "decode_step", now, done_t,
                                  d.label, batch=len(batch), compute=dt)
+            self._host_spans(d, now)
         still = []
         for seq in batch:
             state = self._states[seq.rid]
@@ -922,6 +983,8 @@ class ServingCluster(_LiveBackend):
         req = state.request
         state.to_status(RequestStatus.PREFILLING)
         state.where = ("absorb", d)
+        if seq.rid not in d.absorbing:      # the first chunk
+            req.prefill_start = now
         d.absorbing.add(seq.rid)
         prev = seq.prefilled
         done, first, blob, dt, _c = e.prefill_chunk(seq, self._absorb_chunk)
@@ -933,6 +996,7 @@ class ServingCluster(_LiveBackend):
             self.tracer.phase(seq.rid, "prefilling", now, d.label)
             self.tracer.complete("compute", "absorb_chunk", now, t_end,
                                  d.label, rid=seq.rid, tokens=_c, ctx=prev)
+            self._host_spans(d, now)
         if not done:
             d.absorb.push(seq)
         else:
@@ -975,6 +1039,7 @@ class ServingCluster(_LiveBackend):
             state = self._states[seq.rid]
             state.to_status(RequestStatus.PREFILLING)
             req = state.request
+            req.prefill_start = now
             first, blob, dt = e.prefill_request(seq)
             if self.charge is not None:
                 dt = self.charge.prefill([len(seq.tokens) - seq.prefix_hit])
@@ -985,6 +1050,7 @@ class ServingCluster(_LiveBackend):
                     x.label, rid=seq.rid,
                     tokens=len(seq.tokens) - seq.prefix_hit,
                     hit=seq.prefix_hit)
+                self._host_spans(x, now)
             seq.append_token(first)
             req.first_token = now + dt
             self._emit_token(state, first, now + dt)
@@ -1012,6 +1078,7 @@ class ServingCluster(_LiveBackend):
                 self.tracer.complete("step", "decode_step", now, done_t,
                                      x.label, batch=len(batch2),
                                      compute=dt)
+                self._host_spans(x, now)
             still = []
             for seq in batch2:
                 state = self._states[seq.rid]

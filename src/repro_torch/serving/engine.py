@@ -32,7 +32,9 @@ gathered prefix stitched to the fresh suffix.
 
 Step times are measured on the host clock after a device synchronise and
 accumulated on a virtual clock, so one host can emulate N concurrent
-instances.
+instances. While the owning cluster traces (`Engine.trace`), each step
+also keeps its phases (`StepPhases`): `torch.profiler.record_function`
+ranges on the profiler's clock and host offsets in `Engine.phases`.
 
 The engine runs on the card (`device=None` means "cuda"; with no CUDA
 device it raises). `device="cpu"` runs every kernel's plain version, as
@@ -76,6 +78,74 @@ def _tree_bytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return 0
+
+
+class StepPhases:
+    """One engine step's phases, built only while tracing is on.
+
+    Each phase is a `torch.profiler.record_function` range, so the
+    profiler's trace names the host's work, and through the launch calls
+    inside a range the device operations it queued: `<kind>.launch` (the
+    model's calls, until they return) and `<kind>.sync` (the wait for the
+    device) nest in the step's umbrella range, which covers the charged
+    interval; `<kind>.sample`
+    (the token's readback) follows the umbrella, or nests in
+    `<kind>.launch` on the paths that sample inside the charged interval.
+    `marks(t0)` gives each phase as (name, start, end) in host seconds
+    from the step's t0; launch and sync come from the same clock reads as
+    the charged seconds, so they sum to them. The step closes it in a
+    `finally` (`close`), so a step that raises leaves no range open."""
+
+    def __init__(self, umbrella: str, kind: str):
+        self.kind = kind
+        self._open: List[Any] = []          # the entered ranges, nested
+        self._push(umbrella)
+        self._push(kind + ".launch")
+        self._launched = self._charged = 0.0
+        self._sample = None
+
+    def _push(self, name: str):
+        r = torch.profiler.record_function(name)
+        r.__enter__()
+        self._open.append(r)
+
+    def _pop(self):
+        self._open.pop().__exit__(None, None, None)
+
+    def launched(self):
+        """The model's calls returned: the wait for the device starts."""
+        self._launched = time.perf_counter()
+        self._pop()
+        self._push(self.kind + ".sync")
+
+    def charged(self, t1: float):
+        """The synchronise returned at `t1`, the charged interval's end."""
+        self._charged = t1
+        self._pop()
+        self._pop()
+
+    def sampling(self):
+        self._push(self.kind + ".sample")
+        self._sample = time.perf_counter()
+
+    def sampled(self):
+        self._pop()
+        self._sample = (self._sample, time.perf_counter())
+
+    def close(self):
+        """Exit the ranges still open, innermost first: none after a step
+        that returned, the step's own after one that raised."""
+        while self._open:
+            self._pop()
+
+    def marks(self, t0: float) -> List[Tuple[str, float, float]]:
+        out = [(self.kind + ".launch", 0.0, self._launched - t0),
+               (self.kind + ".sync", self._launched - t0,
+                self._charged - t0)]
+        if self._sample is not None:
+            a, b = self._sample
+            out.append((self.kind + ".sample", a - t0, b - t0))
+        return out
 
 
 @dataclasses.dataclass
@@ -190,6 +260,10 @@ class Engine:
         self.decode_tokens = 0
         self.fused_dispatches = 0             # prefix_prefill kernel calls
         self.chunk_dispatches = 0             # chunked-prefill kernel calls
+        # set by the owning cluster while it traces: each step then keeps
+        # its phases (StepPhases) in `phases`, the last step's
+        self.trace = False
+        self.phases: List[Tuple[str, float, float]] = []
         self._kv = None
         if self.paged:
             pps = -(-max_len // page_size)
@@ -415,25 +489,39 @@ class Engine:
         bucket = S if self.exact_len else self._bucket(S)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :S] = toks                                  # right-pad
-        t0 = time.perf_counter()
-        if self.paged:
-            logits, cache, _ = self._forward_chunk(padded, [], 0, S - 1)
-        else:
-            # the cache comes at the slab's lengths (the insert is a slot
-            # write); exact-length families take the last position's
-            # logits, the others the last real one's
-            kw = {} if self.exact_len else {"last_pos": S - 1}
-            logits, cache, _ = self.model.forward(
-                self.params, torch.as_tensor(padded, device=self.device),
-                attn_blocks=self.attn_blocks, return_cache=True,
-                max_len=self.max_len, **kw)
-        self._sync()
-        dt = time.perf_counter() - t0
-        self.clock += dt
-        self.steps += 1
-        self.prefill_tokens += S
-        first = self._sample_token(seq, logits[0, 0])
-        return first, (cache, S), dt
+        ph = StepPhases("prefill_batch", "prefill") if self.trace else None
+        try:
+            t0 = time.perf_counter()
+            if self.paged:
+                logits, cache, _ = self._forward_chunk(padded, [], 0, S - 1)
+            else:
+                # the cache comes at the slab's lengths (the insert is a slot
+                # write); exact-length families take the last position's
+                # logits, the others the last real one's
+                kw = {} if self.exact_len else {"last_pos": S - 1}
+                logits, cache, _ = self.model.forward(
+                    self.params, torch.as_tensor(padded, device=self.device),
+                    attn_blocks=self.attn_blocks, return_cache=True,
+                    max_len=self.max_len, **kw)
+            if ph is not None:
+                ph.launched()
+            self._sync()
+            t1 = time.perf_counter()
+            dt = t1 - t0
+            if ph is not None:
+                ph.charged(t1)
+                ph.sampling()
+            self.clock += dt
+            self.steps += 1
+            self.prefill_tokens += S
+            first = self._sample_token(seq, logits[0, 0])
+            if ph is not None:
+                ph.sampled()
+                self.phases = ph.marks(t0)
+            return first, (cache, S), dt
+        finally:
+            if ph is not None:
+                ph.close()
 
     def _prefill_with_prefix(self, seq: Sequence, toks
                              ) -> Tuple[int, Any, float]:
@@ -451,38 +539,53 @@ class Engine:
         bucket = self._bucket(Ssuf)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :Ssuf] = suffix
-        t0 = time.perf_counter()
-        fused = bool(hit and self.fused_prefix)
-        logits, cache, prefix_kv = self._forward_chunk(
-            padded, hit_pages, hit, Ssuf - 1, fused)
-        first = self._sample_token(seq, logits[0, 0])
+        ph = StepPhases("prefill_batch", "prefill") if self.trace else None
+        try:
+            t0 = time.perf_counter()
+            fused = bool(hit and self.fused_prefix)
+            logits, cache, prefix_kv = self._forward_chunk(
+                padded, hit_pages, hit, Ssuf - 1, fused)
+            if ph is not None:
+                ph.sampling()
+            first = self._sample_token(seq, logits[0, 0])
+            if ph is not None:
+                ph.sampled()
 
-        # the migration blob: on the fused path only the suffix KV (the
-        # prefix stays pinned in the page pool until the wire payload is
-        # materialized); on the fallback the gathered prefix stitched to
-        # the fresh suffix (never a second gather of the hit pages)
-        suffix = {name: {p: cache[name][p] for p in ("k", "v")}
-                  for name in _seg_names(cache)}
-        blob_cache = suffix if prefix_kv is None else {
-            name: {p: torch.cat([prefix_kv[name][p][:, :, :hit], seg[p]],
-                                dim=2) for p in ("k", "v")}
-            for name, seg in suffix.items()}
+            # the migration blob: on the fused path only the suffix KV (the
+            # prefix stays pinned in the page pool until the wire payload is
+            # materialized); on the fallback the gathered prefix stitched to
+            # the fresh suffix (never a second gather of the hit pages)
+            suffix = {name: {p: cache[name][p] for p in ("k", "v")}
+                      for name in _seg_names(cache)}
+            blob_cache = suffix if prefix_kv is None else {
+                name: {p: torch.cat([prefix_kv[name][p][:, :, :hit], seg[p]],
+                                    dim=2) for p in ("k", "v")}
+                for name, seg in suffix.items()}
 
-        # write the fresh suffix pages back into the pools and publish the
-        # new full prompt pages in the radix tree (on pool exhaustion the
-        # request simply isn't retained; the blob above is still complete)
-        total_pages = -(-S // ps)
-        fresh_needed = total_pages - len(hit_pages)
-        if fresh_needed > self._kv.free_pages:
-            self.prefix_cache.evict(fresh_needed - self._kv.free_pages)
-        if fresh_needed <= self._kv.free_pages:
-            table = self._kv.alloc(seq.rid, S, shared=hit_pages)
-            self._write_pages(suffix, table[len(hit_pages):])
-            self.prefix_cache.insert(token_list[:(S // ps) * ps],
-                                     table[:S // ps])
-            self._kv.free(seq.rid)          # tree refs keep shared pages
-        self._sync()
-        dt = time.perf_counter() - t0
+            # write the fresh suffix pages back into the pools and publish the
+            # new full prompt pages in the radix tree (on pool exhaustion the
+            # request simply isn't retained; the blob above is still complete)
+            total_pages = -(-S // ps)
+            fresh_needed = total_pages - len(hit_pages)
+            if fresh_needed > self._kv.free_pages:
+                self.prefix_cache.evict(fresh_needed - self._kv.free_pages)
+            if fresh_needed <= self._kv.free_pages:
+                table = self._kv.alloc(seq.rid, S, shared=hit_pages)
+                self._write_pages(suffix, table[len(hit_pages):])
+                self.prefix_cache.insert(token_list[:(S // ps) * ps],
+                                         table[:S // ps])
+                self._kv.free(seq.rid)          # tree refs keep shared pages
+            if ph is not None:
+                ph.launched()
+            self._sync()
+            t1 = time.perf_counter()
+            dt = t1 - t0
+            if ph is not None:
+                ph.charged(t1)
+                self.phases = ph.marks(t0)
+        finally:
+            if ph is not None:
+                ph.close()
         self.clock += dt
         self.steps += 1
         self.prefill_tokens += Ssuf
@@ -533,44 +636,61 @@ class Engine:
         S = len(toks)
         assert S < self.max_len, (S, self.max_len)
         ps = self._kv.page_size
-        t0 = time.perf_counter()
-        st = self._partial.get(seq.rid)
-        if st is None:
-            token_list = [int(t) for t in toks]
-            hit, hit_pages = (self.prefix_cache.match(token_list)
-                              if self.prefix_caching else (0, []))
-            # keep >= 1 suffix token: the first output needs its logits
-            hit = min(hit, ((S - 1) // ps) * ps)
-            hit_pages = hit_pages[:hit // ps]
-            if hit_pages:
-                self._kv.acquire(hit_pages)  # pin across eviction
-            need = -(-S // ps) - len(hit_pages)
-            if need > self._kv.free_pages and self.prefix_caching:
-                self.prefix_cache.evict(need - self._kv.free_pages)
-            table = self._kv.alloc(seq.rid, S, shared=hit_pages)
-            if hit_pages:
-                self._kv.release(hit_pages)  # table refs hold them now
-            st = PartialPrefill(list(table), hit, hit)
-            self._partial[seq.rid] = st
-        ctx = st.done
-        c = min(chunk_tokens, S - ctx)
-        if ctx + c < S:
-            # non-final chunks end on a page boundary
-            c = min(max((c // ps) * ps, ps), S - ctx)
-        final = ctx + c == S
-        padded = np.zeros((1, self._bucket(c)), np.int32)
-        padded[0, :c] = toks[ctx:ctx + c]
-        fused = self.fused_prefix if self.prefix_caching else True
-        logits, cache, _ = self._forward_chunk(
-            padded, st.table[:ctx // ps], ctx, c - 1, fused)
-        first = self._sample_token(seq, logits[0, 0]) if final else None
-        # in-place paged write of the chunk's fresh KV
-        first_page = ctx // ps
-        n_chunk_pages = -(-(ctx + c) // ps) - first_page
-        self._write_pages({k: cache[k] for k in _seg_names(cache)},
-                          st.table[first_page:first_page + n_chunk_pages])
-        self._sync()
-        dt = time.perf_counter() - t0
+        ph = StepPhases("chunk", "prefill") if self.trace else None
+        try:
+            t0 = time.perf_counter()
+            st = self._partial.get(seq.rid)
+            if st is None:
+                token_list = [int(t) for t in toks]
+                hit, hit_pages = (self.prefix_cache.match(token_list)
+                                  if self.prefix_caching else (0, []))
+                # keep >= 1 suffix token: the first output needs its logits
+                hit = min(hit, ((S - 1) // ps) * ps)
+                hit_pages = hit_pages[:hit // ps]
+                if hit_pages:
+                    self._kv.acquire(hit_pages)  # pin across eviction
+                need = -(-S // ps) - len(hit_pages)
+                if need > self._kv.free_pages and self.prefix_caching:
+                    self.prefix_cache.evict(need - self._kv.free_pages)
+                table = self._kv.alloc(seq.rid, S, shared=hit_pages)
+                if hit_pages:
+                    self._kv.release(hit_pages)  # table refs hold them now
+                st = PartialPrefill(list(table), hit, hit)
+                self._partial[seq.rid] = st
+            ctx = st.done
+            c = min(chunk_tokens, S - ctx)
+            if ctx + c < S:
+                # non-final chunks end on a page boundary
+                c = min(max((c // ps) * ps, ps), S - ctx)
+            final = ctx + c == S
+            padded = np.zeros((1, self._bucket(c)), np.int32)
+            padded[0, :c] = toks[ctx:ctx + c]
+            fused = self.fused_prefix if self.prefix_caching else True
+            logits, cache, _ = self._forward_chunk(
+                padded, st.table[:ctx // ps], ctx, c - 1, fused)
+            first = None
+            if final:
+                if ph is not None:
+                    ph.sampling()
+                first = self._sample_token(seq, logits[0, 0])
+                if ph is not None:
+                    ph.sampled()
+            # in-place paged write of the chunk's fresh KV
+            first_page = ctx // ps
+            n_chunk_pages = -(-(ctx + c) // ps) - first_page
+            self._write_pages({k: cache[k] for k in _seg_names(cache)},
+                              st.table[first_page:first_page + n_chunk_pages])
+            if ph is not None:
+                ph.launched()
+            self._sync()
+            t1 = time.perf_counter()
+            dt = t1 - t0
+            if ph is not None:
+                ph.charged(t1)
+                self.phases = ph.marks(t0)
+        finally:
+            if ph is not None:
+                ph.close()
         self.clock += dt
         self.steps += 1
         self.prefill_tokens += c
@@ -756,24 +876,39 @@ class Engine:
         tokens = np.zeros((self.max_batch,), np.int32)
         for s in seqs:
             tokens[s.slot] = s.tokens[-1]
-        t0 = time.perf_counter()
-        step = self.model.decode_step_paged if self.paged \
-            else self.model.decode_step
-        logits, self._cache = step(self.params, self._cache,
-                                   torch.as_tensor(tokens, device=self.device))
-        self._sync()
-        dt = time.perf_counter() - t0
-        self.clock += dt
-        self.steps += 1
-        self.decode_tokens += len(seqs)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-        sampled = any(s.sampling is not None and s.sampling.temperature > 0
-                      for s in seqs)
-        for s in seqs:
-            if sampled and s.sampling is not None \
-                    and s.sampling.temperature > 0:
-                tok = self._sample_token(s, logits[s.slot])
-            else:
-                tok = int(nxt[s.slot])
-            s.append_token(tok)
-        return dt
+        ph = StepPhases("decode_step", "decode") if self.trace else None
+        try:
+            t0 = time.perf_counter()
+            step = self.model.decode_step_paged if self.paged \
+                else self.model.decode_step
+            logits, self._cache = step(
+                self.params, self._cache,
+                torch.as_tensor(tokens, device=self.device))
+            if ph is not None:
+                ph.launched()
+            self._sync()
+            t1 = time.perf_counter()
+            dt = t1 - t0
+            if ph is not None:
+                ph.charged(t1)
+                ph.sampling()
+            self.clock += dt
+            self.steps += 1
+            self.decode_tokens += len(seqs)
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            sampled = any(s.sampling is not None and s.sampling.temperature > 0
+                          for s in seqs)
+            for s in seqs:
+                if sampled and s.sampling is not None \
+                        and s.sampling.temperature > 0:
+                    tok = self._sample_token(s, logits[s.slot])
+                else:
+                    tok = int(nxt[s.slot])
+                s.append_token(tok)
+            if ph is not None:
+                ph.sampled()
+                self.phases = ph.marks(t0)
+            return dt
+        finally:
+            if ph is not None:
+                ph.close()
