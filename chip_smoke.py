@@ -84,12 +84,13 @@ Phases, in order (any failure exits non-zero; no phase's error is caught):
    standalone insert a ring layer.
 9. the planning stack and the launcher, yi-6b at full width: (a) time
    one bf16 `Engine`'s own step times (from-scratch prefills of
-   `HOST_PREFILL` and `FIT_PREFILL` tokens, decode steps of `FIT_DECODE`
-   sequences over ~1000-token contexts; median of `FIT_REPS` after a
-   warm-up), fit the H100 `Chip` (`core/h100.py::fit_chip`: the compute
-   form on the device-bound `FIT_PREFILL`, then `hbm_eff` on the decode
-   steps) and print every point against the fresh fit and the committed
-   Chip; fails if a fitted value is not finite or
+   `HOST_PREFILL` and `FIT_PREFILL` tokens, decode steps of
+   `FIT_DECODE_BATCH` sequences at `FIT_DECODE` tokens each; median of
+   `FIT_REPS` after a warm-up),
+   fit the H100 `Chip` (`core/h100.py::fit_chip`: `hbm_eff` and
+   `step_overhead` on the decode steps, then the compute form on the
+   device-bound `FIT_PREFILL`) and print every point against the fresh
+   fit and the committed Chip; fails if a fitted value is not finite or
    an efficiency lies outside (0, 1]. (b) Plan sharegpt at rate 8 with
    Alg. 2 and Alg. 1 on the H100 Chip (one node of two cards) and serve
    the launcher's trace (`LIVE`) through `launch/serve.py::serve_live`
@@ -1082,12 +1083,31 @@ def serve_trace(vocab, seed=0, n=8):
     return reqs
 
 
+def graph_launches(counts, engines):
+    """-> (launches the card ran, by kernel; a line on the decode graphs).
+    `counts` are the kernels' wrappers' counts. A decode engine's CUDA
+    graph (`serving/engine.py::DecodeGraph`) passed its step's launches
+    through the wrappers once, at the capture, which ran nothing; each
+    replay runs them again without passing the wrappers."""
+    ran, line = dict(counts), []
+    for e in engines:
+        g = e.decode_graph
+        if g is None:
+            continue
+        for k, n in g.launches.items():
+            ran[k] += (e.graph_replays - 1) * n
+        step = {k: n for k, n in g.launches.items() if n}
+        line.append(f"{e.graph_replays} replays of {json.dumps(step)}")
+    return ran, "decode graphs: " + ("; ".join(line) or "none")
+
+
 def serve_phase(cfg, params, path=None, **cluster_kw):
     """Serve `serve_trace` through `DisaggCluster` (1 prefill + 1 decode
     engine, 8 slots, max_len 2048, plus `cluster_kw`); the launch counts
-    are set to 0 just before and read just after. Fails unless every
-    request finishes well formed and every kernel of this model's path
-    (`PATHS[path or cfg.name]`) launched. Also records the decode engine's
+    are set to 0 just before and read just after, and the launches of the
+    decode graph's replays are added to them (`graph_launches`). Fails
+    unless every request finishes well formed and every kernel of this
+    model's path (`PATHS[path or cfg.name]`) passed its wrapper. Also records the decode engine's
     steps, the prefill engine's chunk and fused dispatches, the sizes
     (`Engine.kv_blob_bytes`) of the blobs whole-prompt prefills returned,
     the sum of `kv_bytes` over what each insert on the decode side took
@@ -1122,6 +1142,7 @@ def serve_phase(cfg, params, path=None, **cluster_kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    ran, graphs = graph_launches(counts, dc.decode)
     finished = [r for r in res.values() if r.finish >= 0
                 and r.finish_reason != "failed"]
     ttft = statistics.median(r.ttft for r in res.values())
@@ -1133,7 +1154,7 @@ def serve_phase(cfg, params, path=None, **cluster_kw):
                prefill_prefix_hit_tokens=prefix_hits,
                prompt_tokens=sum(r.in_len for r in reqs),
                generated_tokens=sum(r.n_generated for r in res.values()),
-               wall_s=wall, launches=counts,
+               wall_s=wall, launches=ran, wrapper_launches=counts,
                decode_steps=dc.decode[0].steps, blob_bytes=sum(blob_bytes),
                kv_bytes_of_inserts=sum(shipped),
                chunk_dispatches=pre.chunk_dispatches,
@@ -1146,6 +1167,7 @@ def serve_phase(cfg, params, path=None, **cluster_kw):
         f"kv_bytes_migrated={dc.tx.total_bytes} "
         f"prefix_hit_tokens={prefix_hits} wall={wall:.2f}s")
     log("kernels " + json.dumps(counts))
+    log(f"{graphs}; launches run {json.dumps(ran)}")
     for rid, r in sorted(res.items()):
         req = reqs[rid]
         if len(r.tokens) != req.in_len + req.out_len or \
@@ -1157,7 +1179,10 @@ def serve_phase(cfg, params, path=None, **cluster_kw):
     if zero:
         raise SystemExit(f"serve: kernels never launched on the main path: "
                          f"{zero}")
-    del dc
+    # the wrapped methods above close a cycle through each engine: free
+    # the cluster's pools now, not at the collector's next full pass
+    del dc, pre, dec, prefill_request, insert_kv
+    gc.collect()
     return out
 
 
@@ -1665,7 +1690,12 @@ def gemma_profile(cfg, params):
 # the host-bound ones are predicted, not fitted
 FIT_PREFILL = (4096, 5120, 6144, 8192)
 HOST_PREFILL = (256, 512, 1024, 1536)
-FIT_DECODE = (1, 2, 4, 8)               # decode batches over ~1000 tokens
+# decode steps with every slot of an engine of `FIT_DECODE_BATCH` slots
+# live (the step reads every slot's cache, live or not), at each of
+# `FIT_DECODE` tokens a sequence: the KV bytes spread from 0.5 to 34 GB
+# beside 12.1 GB of weights
+FIT_DECODE_BATCH = (8, 32, 64)
+FIT_DECODE = (1024, 2048, 4096, 8192)
 FIT_REPS = 5                            # median of 5 after a warm-up
 # the launcher phase's requests: the CLI's `--live` trace (rate 20, 12
 # requests) at full width, prompts clipped to 1536, outputs to 32
@@ -1696,7 +1726,7 @@ def fit_phase(cfg):
     params = build_model(cfg).cast(init_params(cfg), torch.bfloat16, "cuda")
     gc.collect()
     torch.cuda.empty_cache()
-    eng = Engine(cfg, params, max_batch=8, max_len=8256,
+    eng = Engine(cfg, params, max_batch=FIT_DECODE_BATCH[0], max_len=8256,
                  dtype=torch.bfloat16, device="cuda")
     rng = __import__("numpy").random.default_rng(1)
 
@@ -1708,25 +1738,33 @@ def fit_phase(cfg):
         toks = prompt(L)
         (prefill if L in FIT_PREFILL else host).append((L, median_step(
             lambda: eng.prefill_request(Sequence(0, list(toks), 1))[2])))
-    seqs = []
-    for i in range(8):
-        seq = Sequence(100 + i, prompt(1000 + 4 * i), 1000)
-        first, blob, _ = eng.prefill_request(seq)
-        seq.append_token(first)
-        eng.insert_kv(seq, blob)
-        seqs.append(seq)
     decode = []
-    for b in FIT_DECODE:
-        batch = seqs[:b]
-        eng.decode_step(batch)                      # warm-up
+    for b in FIT_DECODE_BATCH:
+        if eng is None:
+            eng = Engine(cfg, params, max_batch=b, max_len=8256,
+                         dtype=torch.bfloat16, device="cuda")
+        for c in FIT_DECODE:
+            batch = []
+            for i in range(b):
+                seq = Sequence(100 + i, prompt(c), 16)
+                first, blob, _ = eng.prefill_request(seq)
+                seq.append_token(first)
+                eng.insert_kv(seq, blob)
+                batch.append(seq)
+            eng.decode_step(batch)                  # warm-up
+            gc.collect()
+            pts = []
+            for _ in range(FIT_REPS):
+                ctx = sum(len(s.tokens) - 1 for s in batch)
+                pts.append((eng.decode_step(batch), ctx))
+            dt, ctx = sorted(pts)[FIT_REPS // 2]
+            decode.append((b, ctx, dt))
+            for seq in batch:
+                eng.release(seq)
+        eng = None
         gc.collect()
-        pts = []
-        for _ in range(FIT_REPS):
-            ctx = sum(len(s.tokens) - 1 for s in batch)
-            pts.append((eng.decode_step(batch), ctx))
-        dt, ctx = sorted(pts)[FIT_REPS // 2]
-        decode.append((b, ctx, dt))
-    del eng, params, seqs
+        torch.cuda.empty_cache()
+    del params, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1817,6 +1855,7 @@ def plan_serve_phase(cfg, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    ran, graphs = graph_launches(counts, cluster.decode)
     want_bytes = sum(kv_bytes(cfg, r.in_len) for r in reqs)
     out = dict(plans=plans, slo_ttft_s=spec.slo_ttft,
                slo_tpot_s=spec.slo_tpot, n_prefill=len(cluster.prefill),
@@ -1825,7 +1864,8 @@ def plan_serve_phase(cfg, params):
                ttft_median_s=statistics.median(r.ttft for r in res.values()),
                tpot_median_s=statistics.median(r.tpot for r in res.values()),
                kv_bytes_migrated=cluster.tx.total_bytes,
-               kv_bytes_expected=want_bytes, launches=counts, wall_s=wall,
+               kv_bytes_expected=want_bytes, launches=ran,
+               wrapper_launches=counts, wall_s=wall,
                memory_allocated=torch.cuda.memory_allocated(),
                max_memory_allocated=torch.cuda.max_memory_allocated())
     log(f"launch {cfg.name} f32 ({out['n_prefill']} prefill + "
@@ -1837,6 +1877,7 @@ def plan_serve_phase(cfg, params):
         f") wall={wall:.2f}s max_memory_allocated="
         f"{out['max_memory_allocated'] / 2**30:.2f} GiB")
     log("launch kernels " + json.dumps(counts))
+    log(f"launch {graphs}; launches run {json.dumps(ran)}")
     if cluster.tx.total_bytes != want_bytes:
         raise SystemExit("launch: migrated bytes are not the sum of kv_bytes")
     zero = [k for k in PATHS["launch.serve"] if counts[k] <= 0]
@@ -1982,6 +2023,8 @@ def router_phase(cfg, params):
         if fleet is live:
             torch.cuda.synchronize()
             counts = launch_counts()
+            ran, graphs = graph_launches(
+                counts, [e for c in live for e in c.decode])
     res, sres = results
     hits = [c.prefill[0].prefix_hit_tokens for c in live]
     same_ttft = sum(res[i].ttft == sres[i].ttft for i in sres)
@@ -1992,13 +2035,14 @@ def router_phase(cfg, params):
                prefix_hit_tokens=hits, ttft_equal_to_sim=same_ttft,
                ttft_median_s=statistics.median(r.ttft for r in res.values()),
                tpot_median_s=statistics.median(r.tpot for r in res.values()),
-               launches=counts)
+               launches=ran, wrapper_launches=counts)
     log(f"router {cfg.name} x2 replicas: served={len(res)}/{len(reqs)} "
         f"decisions {routers[0].decisions}; equal to the sim fleet's "
         f"{out['decisions_equal']}; prefix-hit tokens per replica {hits}; "
         f"{same_ttft}/{len(sres)} TTFTs equal to the sim's; ttft_median "
         f"{out['ttft_median_s']:.6f}s")
     log("router kernels " + json.dumps(counts))
+    log(f"router {graphs}; launches run {json.dumps(ran)}")
     if not out["decisions_equal"]:
         raise SystemExit(f"router: decisions differ from the sim fleet's: "
                          f"{routers[1].decisions}")

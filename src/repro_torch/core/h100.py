@@ -10,8 +10,12 @@ The peak rates come from the data sheet. The efficiency fields and the
 step overhead are fitted to the port's own bf16 step times on the card
 (`chip_smoke.py` phase 9a, `fit_chip` below), as the paper fits its
 latency model by profiling its own engine (Appendix A): they describe the
-port as it runs today, not the card's best. The decode step is host-bound
-(ROADMAP B7), so `hbm_eff` comes out low; it is refitted when B7 lands.
+port as it runs today, not the card's best. The decode step is one CUDA
+graph a decode engine (`serving/engine.py::DecodeGraph`), paced by the
+card; `hbm_eff` and `step_overhead` come from it. Prefills run eagerly,
+and below ~2k tokens the host's launches pace them (35-62 ms whatever
+the length), which the form cannot hold: the fit leaves them out and the
+model puts them at the card's time.
 """
 from __future__ import annotations
 
@@ -40,56 +44,66 @@ H100 = hw.Chip(
     # paper's testbed figure (25 Gbps), as the A100 entry keeps it
     dcn_bw=3.1e9,
     # fitted by `fit_chip` to yi-6b bf16 step times of the port's Engine
-    # (prefills of 4096-8192 tokens, decode steps of batch 1-8 over ~1000
-    # tokens) on an "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi
-    # name,power.limit); `chip_smoke.py` phase 9a, PERF.md section 5.
-    # The host-bound decode step took 29-55 ms from call to call on the
-    # same card, so `hbm_eff` has come out between 0.09 and 0.24
-    mm_eff=0.47322,
-    attn_eff=0.280218,
-    hbm_eff=0.0885997,
-    step_overhead=0.00801915,
+    # (prefills of 4096-8192 tokens; replayed decode steps of 8, 32 and 64
+    # sequences at 1k-8k tokens each) on an "NVIDIA H100 80GB HBM3,
+    # 700.00 W" (nvidia-smi name,power.limit); `chip_smoke.py` phase 9a,
+    # PERF.md section 6. A second fit in the same call gave
+    # mm_eff 0.438, attn_eff 0.354, hbm_eff 0.2993, step_overhead 0
+    mm_eff=0.431351,
+    attn_eff=0.385369,
+    hbm_eff=0.299301,
+    step_overhead=0.0,
 )
 
 
 def fit_chip(cfg, prefill: Sequence[Tuple[int, float]],
              decode: Sequence[Tuple[int, float, float]],
              base: hw.Chip = H100) -> hw.Chip:
-    """Fit `mm_eff`, `attn_eff`, `step_overhead` and `hbm_eff` of `base`
+    """Fit `hbm_eff`, `step_overhead`, `mm_eff` and `attn_eff` of `base`
     to measured step times, on relative error, in two stages.
 
     `prefill` holds (L, seconds) of one from-scratch prefill of L tokens;
     `decode` holds (batch, ctx_tokens, seconds) of one decode step, with
     ctx_tokens the batch's cached tokens as the cluster charges them.
 
-    1. Prefill, in the compute branch of `LatencyModel.prefill_time`
-       (tp = pp = 1): T = G L / (P mm) + A(L) / (P attn) + C, linear in
-       1/mm, 1/attn and C. The gemm term is linear in L and the attention
-       term quadratic, so the two separate.
-    2. Decode, in the memory branch of `decode_time` with that C:
-       T - C = (W + KV(ctx)) / (B_hbm hbm). At tp = 1 the weight bytes do
-       not change with the batch, so C and hbm cannot be fitted jointly
-       from decode alone.
+    1. Decode, in the memory branch of `LatencyModel.decode_time`
+       (tp = pp = 1): T = (W + KV(ctx)) / (B_hbm hbm) + C, linear in
+       1/hbm and C, with C >= 0. The weight bytes W are the same at every
+       point of a dense model, so the points must spread the KV bytes
+       (batches and contexts): the slope gives hbm, the intercept C. One
+       rate stands for two kernels' (the GEMMs read W, `paged_decode`
+       the KV, at a rate far below theirs), so over a decode instance's
+       batches the unconstrained intercept can come out below 0; an
+       overhead is a time, so C then stays at 0 and hbm is fitted alone.
+    2. Prefill, in the compute branch of `prefill_time` with that C:
+       T - C = G L / (P mm) + A(L) / (P attn). The gemm term is linear in
+       L and the attention term quadratic, so the two separate. The
+       prefill points cannot place C themselves: over 4k-8k tokens any C
+       from 0 to 12 ms fits yi-6b's within 1% on the card.
 
     Returns `base` with the four fields replaced; a value that is not a
     positive finite number comes back as it is, for the caller to refuse.
     """
     lm = LatencyModel(cfg, base)
     peak = base.peak_flops_bf16
-    t = np.array([s for _, s in prefill], dtype=np.float64)
-    a = np.array([[lm.gemm_flops_per_token() * L / peak,
-                   lm.attn_flops([L]) / peak, 1.0] for L, _ in prefill])
-    x, *_ = np.linalg.lstsq(a / t[:, None], np.ones_like(t), rcond=None)
-    inv_mm, inv_attn, over = (float(v) for v in x)
     td = np.array([s for _, _, s in decode], dtype=np.float64)
     b = np.array([(lm.active_param_bytes(n) + lm.kv_read_bytes(ctx))
-                  / base.hbm_bw for n, ctx, _ in decode])
-    # minimise sum(((b y + C - T) / T)^2) over y = 1 / hbm
-    inv_hbm = float(np.sum(b * (td - over) / td ** 2)
-                    / np.sum(b ** 2 / td ** 2))
-    return dataclasses.replace(base, mm_eff=_inv(inv_mm),
-                               attn_eff=_inv(inv_attn),
-                               hbm_eff=_inv(inv_hbm), step_overhead=over)
+                  / base.hbm_bw for n, ctx, _ in decode]) / td
+    # minimise sum((b y + C / T - 1)^2) over y = 1 / hbm and C >= 0
+    (inv_hbm, over), *_ = np.linalg.lstsq(np.stack([b, 1.0 / td], 1),
+                                          np.ones_like(td), rcond=None)
+    if over < 0.0:
+        inv_hbm, over = np.sum(b) / np.sum(b ** 2), 0.0
+    over = float(over)
+    t = np.array([s for _, s in prefill], dtype=np.float64)
+    a = np.array([[lm.gemm_flops_per_token() * L / peak,
+                   lm.attn_flops([L]) / peak] for L, _ in prefill])
+    (inv_mm, inv_attn), *_ = np.linalg.lstsq(a / t[:, None], 1.0 - over / t,
+                                             rcond=None)
+    return dataclasses.replace(base, mm_eff=_inv(float(inv_mm)),
+                               attn_eff=_inv(float(inv_attn)),
+                               hbm_eff=_inv(float(inv_hbm)),
+                               step_overhead=over)
 
 
 def _inv(v: float) -> float:

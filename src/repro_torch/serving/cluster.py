@@ -3,7 +3,9 @@
 # `ServingCluster` / `DisaggCluster` a storage `dtype` for them. It stamps
 # `Request.prefill_start` as `core/simulator.py` does, and while it traces
 # it records each engine step's host phases and each admission's page
-# write as `host` spans and `torch.profiler.record_function` ranges.
+# write as `host` spans and `torch.profiler.record_function` ranges; its
+# `decode_step` spans carry `graph`, 1 where the step replayed the decode
+# engine's CUDA graph.
 """Role-unified live serving cluster on the port's PyTorch engines with
 virtual-clock concurrency emulation (DistServe runtime, Fig. 6, extended
 with runtime aggregation<->disaggregation).
@@ -942,7 +944,8 @@ class ServingCluster(_LiveBackend):
         d.free_at = done_t
         if self.tracer.enabled:
             self.tracer.complete("step", "decode_step", now, done_t,
-                                 d.label, batch=len(batch), compute=dt)
+                                 d.label, batch=len(batch), compute=dt,
+                                 graph=int(e.replayed))
             self._host_spans(d, now)
         still = []
         for seq in batch:
@@ -1077,7 +1080,7 @@ class ServingCluster(_LiveBackend):
             if self.tracer.enabled:
                 self.tracer.complete("step", "decode_step", now, done_t,
                                      x.label, batch=len(batch2),
-                                     compute=dt)
+                                     compute=dt, graph=int(e.replayed))
                 self._host_spans(x, now)
             still = []
             for seq in batch2:

@@ -30,6 +30,11 @@ to the page bucket (the JAX engine's fallback), and attends over that
 gather's page view through the same kernel. The fallback's blob is the
 gathered prefix stitched to the fresh suffix.
 
+On the card the paged decode step is captured once as a CUDA graph
+(`DecodeGraph`), after the engine's first decode step, which runs the
+model's launches as every step does on the CPU and on the slab; every
+later step replays the graph.
+
 Step times are measured on the host clock after a device synchronise and
 accumulated on a virtual clock, so one host can emulate N concurrent
 instances. While the owning cluster traces (`Engine.trace`), each step
@@ -49,6 +54,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import launch_counts
 from ..models.api import build_model, supports_paged
 from .api import FINISH_LENGTH, FINISH_STOP, SamplingParams
 from .kv_cache import KVCacheManager, TRASH_PAGE
@@ -94,7 +100,10 @@ class StepPhases:
     `marks(t0)` gives each phase as (name, start, end) in host seconds
     from the step's t0; launch and sync come from the same clock reads as
     the charged seconds, so they sum to them. The step closes it in a
-    `finally` (`close`), so a step that raises leaves no range open."""
+    `finally` (`close`), so a step that raises leaves no range open.
+    A decode step that replays the engine's `DecodeGraph` has
+    `decode.launch` the tokens' copy and the replay's enqueue, and
+    `decode.sync` the card's run of the step."""
 
     def __init__(self, umbrella: str, kind: str):
         self.kind = kind
@@ -146,6 +155,44 @@ class StepPhases:
             a, b = self._sample
             out.append((self.kind + ".sample", a - t0, b - t0))
         return out
+
+
+class DecodeGraph:
+    """The paged decode step as one CUDA graph, captured once and replayed
+    at every later step.
+
+    Every launch of the step has its shape from the engine's fixed sizes
+    (`max_batch` slots, the full-width block table; the split kernel's
+    grid from shapes alone) and reads every length on the device, so one
+    capture serves every step. The capture records the launches against
+    fixed storage, and runs none of them: the params, the pools, the
+    block table and `pos` (which `insert_kv`, `release` and the step
+    itself write in place) and a static token buffer. A call copies the
+    step's tokens into that buffer from pinned host memory and replays
+    the graph; the logits land in the graph's static output, to be read
+    before the next call. A replay runs the kernels without passing their
+    wrappers, so the kernels' launch counters count each captured launch
+    once, at the capture; `launches` holds those counts (by kernel), what
+    each replay runs again."""
+
+    def __init__(self, step, params, cache, max_batch: int, device):
+        self.tokens = torch.zeros((max_batch,), dtype=torch.int32,
+                                  device=device)
+        self._host = torch.zeros((max_batch,), dtype=torch.int32) \
+            .pin_memory()
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, _ = step(params, cache, self.tokens)
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+
+    def __call__(self, tokens: np.ndarray) -> torch.Tensor:
+        """Queue one step over every slot; -> the (max_batch, V) logits."""
+        self._host.numpy()[:] = tokens
+        self.tokens.copy_(self._host, non_blocking=True)
+        self.graph.replay()
+        return self.logits
 
 
 @dataclasses.dataclass
@@ -264,6 +311,11 @@ class Engine:
         # its phases (StepPhases) in `phases`, the last step's
         self.trace = False
         self.phases: List[Tuple[str, float, float]] = []
+        # the paged decode step on the card is captured after the first
+        # decode step (`DecodeGraph`); `replayed`: the last step replayed it
+        self.decode_graph: Optional[DecodeGraph] = None
+        self.graph_replays = 0
+        self.replayed = False
         self._kv = None
         if self.paged:
             pps = -(-max_len // page_size)
@@ -869,8 +921,37 @@ class Engine:
         p /= p.sum()
         return int(seq.rng().choice(p.shape[0], p=p))
 
+    @property
+    def graph_captures(self) -> int:
+        return int(self.decode_graph is not None)
+
+    def _capture_decode_graph(self) -> Optional[DecodeGraph]:
+        """The paged decode step as a CUDA graph, on the card; None on the
+        slab and on the CPU, which keep the model's launches."""
+        if not (self.paged and self.device.type == "cuda"):
+            return None
+        return DecodeGraph(self.model.decode_step_paged, self.params,
+                           self._cache, self.max_batch, self.device)
+
+    def _step_logits(self, tokens: np.ndarray) -> torch.Tensor:
+        """Queue one decode step over every slot; -> its (max_batch, V)
+        logits, before the device synchronise: the captured graph's replay
+        where there is one, else the model's own launches."""
+        self.replayed = self.decode_graph is not None
+        if self.replayed:
+            self.graph_replays += 1
+            return self.decode_graph(tokens)
+        step = self.model.decode_step_paged if self.paged \
+            else self.model.decode_step
+        logits, self._cache = step(
+            self.params, self._cache,
+            torch.as_tensor(tokens, device=self.device))
+        return logits
+
     def decode_step(self, seqs: List[Sequence]) -> float:
-        """One decode iteration for all active sequences."""
+        """One decode iteration for all active sequences. On the card the
+        paged step's first call also captures the step as a CUDA graph,
+        after its charged interval (`DecodeGraph`)."""
         if not seqs:
             return 0.0
         tokens = np.zeros((self.max_batch,), np.int32)
@@ -879,11 +960,7 @@ class Engine:
         ph = StepPhases("decode_step", "decode") if self.trace else None
         try:
             t0 = time.perf_counter()
-            step = self.model.decode_step_paged if self.paged \
-                else self.model.decode_step
-            logits, self._cache = step(
-                self.params, self._cache,
-                torch.as_tensor(tokens, device=self.device))
+            logits = self._step_logits(tokens)
             if ph is not None:
                 ph.launched()
             self._sync()
@@ -908,6 +985,8 @@ class Engine:
             if ph is not None:
                 ph.sampled()
                 self.phases = ph.marks(t0)
+            if self.decode_graph is None:
+                self.decode_graph = self._capture_decode_graph()
             return dt
         finally:
             if ph is not None:

@@ -779,7 +779,9 @@ def _smoke_serving(cuda):
     cfg = get_config("yi-6b-smoke")
     params = build_model(cfg).init(
         torch.Generator(device=cuda).manual_seed(0), cuda)
-    lm = LatencyModel(cfg, H100)
+    # a fixed 8 ms a step: the fitted H100 has none, so the smoke model's
+    # steps would take microseconds and a trace's requests never meet
+    lm = LatencyModel(cfg, dataclasses.replace(H100, step_overhead=8e-3))
     return cfg, params, lm, EngineCharge(lm, Parallelism())
 
 
@@ -1541,3 +1543,165 @@ def test_sharded_cores_launch_the_kernels_on_each_shard(cuda, tmp_path):
         assert counts["ssd_scan"] - before["ssd_scan"] == 1
     finally:
         dist.destroy_process_group()
+
+
+# -- the engine's decode step as one CUDA graph (serving/engine.py) --------
+
+GRAPH_KW = dict(max_batch=4, max_len=128, page_size=16, device="cuda")
+
+
+def _admit(engine, donor, rid, prompt, out_len=64):
+    """A sequence of `prompt` prefilled on `donor` and inserted into
+    `engine` (the same blob for every engine it is given to)."""
+    from repro_torch.serving.engine import Sequence
+    seq = Sequence(rid, list(prompt), out_len)
+    first, blob, _ = donor.prefill_request(Sequence(rid, list(prompt), 1))
+    seq.append_token(first)
+    engine.insert_kv(seq, blob)
+    return seq
+
+
+def _serve_graph_script(engine, donor, prompts, record):
+    """Decode steps over a changing batch: two sequences, a third inserted
+    into a fresh slot, a release, a fourth into the last fresh slot and a
+    fifth into the freed one; 18 steps. `record` gets each step's logits.
+    -> every sequence's tokens, in admission order."""
+    real = engine._step_logits
+
+    def step_logits(tokens):
+        out = real(tokens)
+        record.append(out.clone())
+        return out
+    engine._step_logits = step_logits
+    seqs = [_admit(engine, donor, i, prompts[i]) for i in range(2)]
+    active = list(seqs)
+    for _ in range(5):
+        engine.decode_step(active)
+    seqs.append(_admit(engine, donor, 2, prompts[2]))       # slot 2, fresh
+    active = list(seqs)
+    for _ in range(5):
+        engine.decode_step(active)
+    engine.release(seqs[1])                                  # slot 1 freed
+    active.remove(seqs[1])
+    seqs.append(_admit(engine, donor, 3, prompts[3]))       # slot 3, fresh
+    seqs.append(_admit(engine, donor, 4, prompts[4]))       # slot 1 again
+    assert [s.slot for s in seqs] == [0, -1, 2, 3, 1]
+    active += seqs[3:]
+    for _ in range(8):
+        engine.decode_step(active)
+    torch.cuda.synchronize()
+    return [s.tokens for s in seqs]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ["yi-6b-smoke", "moonshot-v1-16b-a3b-smoke"])
+def test_decode_graph_serves_the_eager_steps_bit_for_bit(cuda, arch, dtype):
+    """On the paged path the engine's first decode step runs the model's
+    launches and captures the step; the 17 after it replay the graph.
+    Against an engine that never captures (the same weights, the same
+    prefill blobs): the logits of every step and the served tokens bit
+    for bit, through insertions into fresh and freed slots and a release
+    between steps. The kernels' launch counters of the graph engine count
+    the first step and the capture, and each replay runs the captured
+    launches again: with those, the eager engine's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Engine
+
+    class EagerEngine(Engine):
+        def _capture_decode_graph(self):
+            return None
+    cfg = get_config(arch)
+    graph = Engine(cfg, None, dtype=dtype, **GRAPH_KW)
+    eager = EagerEngine(cfg, graph.params, dtype=dtype, **GRAPH_KW)
+    donor = Engine(cfg, graph.params, dtype=dtype, **dict(GRAPH_KW,
+                                                          max_batch=1))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (20, 37, 9, 50, 28)]
+    runs = {}
+    for name, e in (("eager", eager), ("graph", graph)):
+        logits = []
+        tk.reset_launch_counts()
+        tokens = _serve_graph_script(e, donor, prompts, logits)
+        runs[name] = (tokens, logits, tk.launch_counts())
+    assert graph.graph_captures == 1
+    assert graph.graph_replays == 17 and graph.replayed
+    assert eager.graph_captures == eager.graph_replays == 0
+    (t_e, l_e, c_e), (t_g, l_g, c_g) = runs["eager"], runs["graph"]
+    assert t_g == t_e
+    assert len(l_g) == len(l_e) == 18
+    for i, (a, b) in enumerate(zip(l_e, l_g)):
+        assert torch.equal(a, b), f"step {i}"
+    captured = graph.decode_graph.launches
+    assert captured["paged_insert_decode"] == cfg.num_layers
+    assert c_g["paged_insert_decode"] == 2 * cfg.num_layers
+    assert {k: c_g[k] + 16 * captured[k] for k in c_g} == c_e
+    assert c_e["paged_insert_decode"] == 18 * cfg.num_layers
+
+
+def test_decode_graph_capture_is_not_charged(cuda, monkeypatch):
+    """The capture follows the first step's charged interval: a capture
+    made 0.3 s slower moves neither that step's seconds nor the engine's
+    clock, and no step runs twice (`pos` moved once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import Engine
+    import time
+
+    class SlowCapture(engine_mod.DecodeGraph):
+        def __init__(self, *a, **kw):
+            time.sleep(0.3)
+            super().__init__(*a, **kw)
+    monkeypatch.setattr(engine_mod, "DecodeGraph", SlowCapture)
+    cfg = get_config("yi-6b-smoke")
+    e = Engine(cfg, None, dtype=torch.bfloat16, **GRAPH_KW)
+    seq = _admit(e, e, 0, list(range(1, 30)))
+    pos0, clock0 = e._cache["pos"].clone(), e.clock     # after the prefill
+    t = time.perf_counter()
+    dt = e.decode_step([seq])
+    wall = time.perf_counter() - t
+    assert e.graph_captures == 1 and e.graph_replays == 0
+    assert wall >= 0.3 > dt and e.clock == clock0 + dt
+    assert torch.equal(e._cache["pos"], pos0 + 1)
+    dts = [e.decode_step([seq]) for _ in range(3)]
+    assert e.graph_replays == 3
+    assert e.clock == pytest.approx(clock0 + dt + sum(dts))
+    assert torch.equal(e._cache["pos"], pos0 + 4)
+
+
+def test_slab_engine_captures_no_decode_graph(cuda):
+    """The slab path (SSM, hybrid, ring and windowed caches; here the
+    transformer with `paged=False`) keeps the model's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Engine
+    cfg = get_config("yi-6b-smoke")
+    e = Engine(cfg, None, dtype=torch.bfloat16, paged=False, **GRAPH_KW)
+    assert not e.paged
+    seq = _admit(e, e, 0, list(range(1, 30)))
+    for _ in range(4):
+        e.decode_step([seq])
+    assert e.decode_graph is None and not e.replayed
+    assert e.graph_captures == e.graph_replays == 0
+
+
+def test_traced_cluster_marks_the_replayed_decode_steps(cuda):
+    """On the card the decode engine's first step captures the graph and
+    every later one replays it: the `decode_step` spans say so."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.telemetry import Tracer
+    from repro_torch.core.workload import Request
+    from repro_torch.serving.cluster import DisaggCluster
+    tr = Tracer()
+    c = DisaggCluster(get_config("yi-6b-smoke"), None, max_batch=4,
+                      max_len=96, tracer=tr, device="cuda",
+                      dtype=torch.bfloat16)
+    for i in range(4):
+        c.submit(dataclasses.replace(Request(i, 0.01 * i, 20 + 9 * i, 5)))
+    c.drain()
+    graphs = [s.args["graph"] for s in tr.spans if s.name == "decode_step"]
+    assert len(graphs) > 3 and graphs == [0] + [1] * (len(graphs) - 1)
+    dec = next(x.engine for x in c.inst if x.role == "decode")
+    pre = next(x.engine for x in c.inst if x.role == "prefill")
+    assert dec.graph_captures == 1 and dec.graph_replays == len(graphs) - 1
+    assert pre.graph_captures == pre.graph_replays == 0

@@ -58,6 +58,11 @@ CFG, JCFG = get_config(SMOKE), jx_get_config(SMOKE)
 # the H100 Chip as the JAX package builds it, field by field
 JH100 = jhw.Chip(**dataclasses.asdict(H100))
 CHIPS = {"v5e": (hw.V5E, jhw.V5E), "h100": (H100, JH100)}
+# the H100 charge with a fixed 8 ms a step. The fitted H100 has none (the
+# replayed decode step's fixed part sits in its `hbm_eff`, at yi-6b's
+# width), so the smoke model's steps would take microseconds there and no
+# two requests of a trace 0.05 s apart would meet at a replica
+H100_STEP = dataclasses.replace(H100, step_overhead=8e-3)
 PAR, JPAR = Parallelism(), JPar()
 
 
@@ -267,17 +272,19 @@ FLEET_KW = dict(n_prefill=1, n_decode=1, max_batch=4, max_len=96,
 
 def test_fleet_router_matches_jax_and_sim(params, jparams):
     """Two port clusters behind `FleetRouter(policy="prefix_affinity")`
-    under the H100 charge: the same `decisions` as the JAX fleet and as a
-    fleet of two port `SimDisaggBackend`s; the JAX fleet's tokens and
-    times, and the sim fleet's TTFTs (later decode steps meet the
+    under the H100 charge with 8 ms a step (`H100_STEP`): the same
+    `decisions` as the JAX fleet and as a fleet of two port
+    `SimDisaggBackend`s; the JAX fleet's tokens and times, and the sim
+    fleet's TTFTs (later decode steps meet the
     busy-instance difference of `test_charged_live_matches_jax_and_sim`,
     which leaves the routing untouched here)."""
-    lm = LatencyModel(CFG, H100)
+    lm = LatencyModel(CFG, H100_STEP)
+    jchip = jhw.Chip(**dataclasses.asdict(H100_STEP))
     live = [DisaggCluster(CFG, params, device="cpu", seed=i,
                           charge=EngineCharge(lm, PAR), **FLEET_KW)
             for i in range(2)]
     jlive = [JDisagg(JCFG, jparams, seed=i,
-                     charge=JCharge(JLM(JCFG, JH100), JPAR), **FLEET_KW)
+                     charge=JCharge(JLM(JCFG, jchip), JPAR), **FLEET_KW)
              for i in range(2)]
     sims = [SimDisaggBackend(lm, InstanceConfig(PAR, 1),
                              InstanceConfig(PAR, 1),
@@ -352,17 +359,37 @@ def test_replanner_grows_fleet_as_jax():
 @pytest.mark.parametrize("arch", ["yi-6b", "gemma3-1b"])
 def test_fit_chip_recovers_known_efficiencies(arch):
     """Step times made by a known Chip through the latency model's own
-    forms (compute-bound prefill, memory-bound decode) give that Chip's
-    fields back."""
+    forms (compute-bound prefill, memory-bound decode at the fit's
+    contexts of 1k-8k tokens a sequence) give that Chip's fields back."""
     cfg = get_config(arch)
     true = dataclasses.replace(H100, mm_eff=0.3, attn_eff=0.27,
                                hbm_eff=0.85, step_overhead=3e-3)
     lm = LatencyModel(cfg, true)
     prefill = [(L, lm.prefill_time([L], PAR)) for L in (256, 512, 1024, 1536)]
-    decode = [(b, 1000.0 * b, lm.decode_time(b, 1000.0 * b, PAR))
-              for b in (1, 2, 4, 8)]
+    decode = [(8, 8.0 * c, lm.decode_time(8, 8.0 * c, PAR))
+              for c in (1024, 2048, 4096, 8192)]
     got = fit_chip(cfg, prefill, decode, base=H100)
     for f in ("mm_eff", "attn_eff", "hbm_eff", "step_overhead"):
         assert getattr(got, f) == pytest.approx(getattr(true, f), rel=1e-9), f
     assert (got.name, got.peak_flops_bf16, got.hbm_bw) == \
         (H100.name, H100.peak_flops_bf16, H100.hbm_bw)
+
+
+def test_fit_chip_keeps_the_overhead_at_0_where_the_intercept_falls_below():
+    """Decode steps that read the weights at 0.8 of the bandwidth and the
+    KV at 0.2 (two kernels; the form has one rate): the unconstrained
+    intercept lies below 0, so the overhead stays at 0, the one rate lands
+    between the two, and the prefill stage fits with no overhead."""
+    cfg = get_config("yi-6b")
+    true = dataclasses.replace(H100, mm_eff=0.45, attn_eff=0.3,
+                               hbm_eff=0.5, step_overhead=0.0)
+    lm, bw = LatencyModel(cfg, true), H100.hbm_bw
+    decode = [(b, b * c, lm.active_param_bytes(b) / (0.8 * bw)
+               + lm.kv_read_bytes(b * c) / (0.2 * bw))
+              for b in (8, 32, 64) for c in (1024, 4096)]
+    prefill = [(L, lm.prefill_time([L], PAR)) for L in (4096, 6144, 8192)]
+    got = fit_chip(cfg, prefill, decode, base=H100)
+    assert got.step_overhead == 0.0
+    assert 0.2 < got.hbm_eff < 0.8
+    for f in ("mm_eff", "attn_eff"):
+        assert getattr(got, f) == pytest.approx(getattr(true, f), rel=1e-9), f

@@ -1,7 +1,8 @@
 """The live cluster's tracing on the CPU (yi-6b-smoke, plain versions):
 each engine step's `host` spans and `record_function` ranges, the
-migration's `admit` span, `Request.prefill_start`, and nothing at all of
-them with tracing off."""
+migration's `admit` span, `Request.prefill_start`, the decode steps'
+`graph` arg (0 here: the decode graph is the card's), and nothing at all
+of them with tracing off."""
 import dataclasses
 import math
 from unittest import mock
@@ -16,7 +17,7 @@ from repro_torch.core.latency_model import (EngineCharge, LatencyModel,
 from repro_torch.core.simulator import InstanceConfig, SimDisaggBackend
 from repro_torch.core.telemetry import Tracer
 from repro_torch.core.workload import Request
-from repro_torch.serving.cluster import DisaggCluster
+from repro_torch.serving.cluster import ColocatedCluster, DisaggCluster
 from repro_torch.serving.engine import Sequence
 
 CFG = get_config("yi-6b-smoke")
@@ -216,3 +217,29 @@ def test_a_step_that_raises_leaves_no_range_open(step):
         getattr(e, step)(*args)
     assert boom.called and opened == []
     assert entered[1] == role + ".launch"
+
+
+def test_cpu_engines_capture_no_decode_graph(runs):
+    """The decode step's CUDA graph is the card's: on the CPU every engine
+    runs the model's own launches at every step."""
+    off, on, _, _ = runs
+    for x in off.inst + on.inst:
+        e = x.engine
+        assert e.graph_captures == e.graph_replays == 0
+        assert e.decode_graph is None and not e.replayed
+    assert any(x.engine.decode_tokens for x in on.inst)
+
+
+@pytest.mark.parametrize("cluster", ["disagg", "colocated"])
+def test_every_decode_step_span_marks_graph_0_on_the_cpu(runs, cluster):
+    """Both places that record a `decode_step` span say whether the step
+    replayed the graph: never, on the CPU."""
+    if cluster == "disagg":
+        tr = runs[2]
+    else:
+        tr = Tracer()
+        c = ColocatedCluster(CFG, None, tracer=tr, n_engines=1, **KW)
+        c.run([dataclasses.replace(r) for r in TRACE[:3]])
+    steps = [s for s in tr.spans if s.name == "decode_step"]
+    assert len(steps) > 3
+    assert all(s.args["graph"] == 0 for s in steps)
